@@ -17,7 +17,9 @@ import torch
 
 from zigz_tpu_torch import BabyBear, Prover, elf, serialization
 from zigz_tpu_torch.commitments.device_forest import DeviceMerkleForest
-from zigz_tpu_torch.ops import keccak, witness_dev
+from zigz_tpu_torch.commitments.ligero import ligero_commit_mixed
+from zigz_tpu_torch.ops import keccak, ligero_dev, witness_dev
+from zigz_tpu_torch.prover.prover import ReferenceProver
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +83,57 @@ def test_prove_on_the_card_matches_the_fixture(cuda, name, tape):
     assert keccak.LAUNCHES["leaves"] == 1 and keccak.LAUNCHES["merge"] == proof.metadata.num_vars
     data = serialization.BinarySerializer(BabyBear).serialize(proof)
     assert data == (FIXTURES / f"{name}_v1.bin").read_bytes()
+
+
+def _words(r, n, seed):
+    vals = np.random.default_rng(seed).integers(0, P, size=(r, n), dtype=np.uint32)
+    vals.reshape(-1)[:2] = [0, P - 1][: vals.size]
+    return torch.from_numpy(vals.view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 255, 4097])
+@pytest.mark.parametrize("r", [1, 33, 34, 543, 544, 545])
+def test_column_sponges_match_plain_and_hashlib(cuda, r, n):
+    mat = _words(r, n, seed=r * n)
+    before = dict(ligero_dev.LAUNCHES)
+    got = ligero_dev.sha3_columns(mat.to(cuda))
+    state = torch.zeros((25, n), dtype=torch.int64, device=cuda)
+    pw = ligero_dev.pad_words(r)
+    on_card = mat.to(cuda)
+    for k0 in range(0, pw, 544):
+        end = min(k0 + 544, pw)
+        live = max(0, min(end, r) - k0)
+        ligero_dev.sha3_absorb(state, on_card[k0 : k0 + live], k0, (end - k0) // 34, r)
+    torch.cuda.synchronize()
+    plain = ligero_dev._sha3_columns_plain(mat)
+    assert torch.equal(got.cpu(), plain)
+    assert torch.equal(state[:4].t().cpu(), plain)
+    assert ligero_dev.LAUNCHES["columns"] == before["columns"] + 1
+    assert ligero_dev.LAUNCHES["absorb"] == before["absorb"] + len(range(0, pw, 544))
+    words = mat.numpy().view(np.uint32)
+    for j in {0, n - 1}:
+        want = hashlib.sha3_256(np.ascontiguousarray(words[:, j]).astype("<u4").tobytes()).digest()
+        assert got[j].cpu().numpy().tobytes() == want
+
+
+def test_mixed_commit_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(12)
+    cols = {f"c{v}": rng.integers(0, P, size=1 << v, dtype=np.uint64) for v in (3, 9, 12, 12)}
+    on_card = ligero_commit_mixed(BabyBear, cols, device=cuda)
+    on_cpu = ligero_commit_mixed(BabyBear, cols, device="cpu")
+    assert on_card.levels == on_cpu.levels and on_card.commit_path == "stream-dev"
+    idx = [0, 5, on_card.n_e - 1]
+    assert np.array_equal(on_card.encoded.gather(idx), on_cpu.encoded.gather(idx))
+
+
+def test_v2_prove_on_the_card_matches_zigz_tpu(cuda, monkeypatch):
+    program = (FIXTURES / "add_program.bin").read_bytes()
+    ser = serialization.BinarySerializer(BabyBear)
+    ligero_dev.LAUNCHES.update(columns=0, absorb=0)
+    prover = Prover(BabyBear, seed=0, device=cuda, protocol_version=2)
+    data = ser.serialize(prover.prove(program, 0x1000, None, 1 << 16, None, None))
+    assert ligero_dev.LAUNCHES["absorb"] > 0
+    assert prover.last_timings["data_commit_path"] == "stream-dev"
+    monkeypatch.setenv("ZIGZ_TPU_COMMITMENTS", "host")
+    ref = ReferenceProver(BabyBear, seed=0, protocol_version=2).prove(program, 0x1000, None, 1 << 16, None, None)
+    assert data == ser.serialize(ref)

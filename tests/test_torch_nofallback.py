@@ -4,6 +4,9 @@
 * The kernel build raises with a clear message when nvcc is missing, when
   nvcc fails (its stderr is in the error), and when the library does not
   load; it never returns a fallback.
+* The Ligero entry points on a CUDA tensor build the kernels or raise;
+  they never hash on the host.
+* The port reads no ``ZIGZ_TPU_*`` environment variable.
 * ``chip_smoke.py`` exits non-zero and prints no result without a card.
 """
 
@@ -17,8 +20,9 @@ import pytest
 import torch
 
 from zigz_tpu.core.field import BabyBear as F
+from zigz_tpu_torch.commitments.ligero import ligero_commit_mixed
 from zigz_tpu_torch.device import card_info, resolve_device
-from zigz_tpu_torch.ops import _build, witness_dev
+from zigz_tpu_torch.ops import _build, ligero_dev, witness_dev
 from zigz_tpu_torch.prover.prover import Prover
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -91,11 +95,52 @@ def test_build_raises_when_the_library_does_not_load(fresh_build, monkeypatch):
 
 def test_build_hashes_the_sources():
     units, headers = _build._sources()
-    assert [p.name for p in units] == ["sha3_kernels.cu"]
+    assert [p.name for p in units] == ["ligero_kernels.cu", "sha3_kernels.cu"]
     assert [p.name for p in headers] == ["keccak.cuh"]
     path = _build._library_path(units, headers)
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach the kernel branch
+    of a wrapper on a host without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("entry", ["sha3_columns", "sha3_absorb"])
+def test_ligero_wrappers_on_cuda_build_the_kernels_or_raise(entry, fresh_build, monkeypatch):
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    msg = torch.zeros((34, 4), dtype=torch.int32).as_subclass(_OnCuda)
+    state = torch.zeros((25, 4), dtype=torch.int64).as_subclass(_OnCuda)
+    before = dict(ligero_dev.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        if entry == "sha3_columns":
+            ligero_dev.sha3_columns(msg)
+        else:
+            ligero_dev.sha3_absorb(state, msg, 0, 1, 40)
+    assert ligero_dev.LAUNCHES == before
+
+
+def test_ligero_commits_on_cuda_raise_without_a_card(no_cuda):
+    cols = {"a": np.arange(16, dtype=np.uint64)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        ligero_commit_mixed(F, cols, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Prover(F, device="cuda", protocol_version=2)
+
+
+def test_port_reads_no_zigz_tpu_variable(monkeypatch):
+    """zigz_tpu's ZIGZ_TPU_COMMITMENTS=host forces its host commit; the
+    port's commit stays on its device path."""
+    monkeypatch.setenv("ZIGZ_TPU_COMMITMENTS", "host")
+    cols = {"a": np.arange(1 << 6, dtype=np.uint64), "b": np.arange(1 << 3, dtype=np.uint64)}
+    assert ligero_commit_mixed(F, cols, device="cpu").commit_path == "stream-dev"
+    sources = sorted((ROOT / "zigz_tpu_torch").rglob("*.py"))
+    assert sources and not [p.name for p in sources if "ZIGZ_TPU_" in p.read_text()]
 
 
 def test_card_info_reports_without_a_card(no_cuda):

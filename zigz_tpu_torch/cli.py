@@ -1,11 +1,12 @@
-"""Command line of the port: ``prove`` runs the port's v1 prover on a device.
+"""Command line of the port: ``prove`` runs the port's prover on a device.
 
     python -m zigz_tpu_torch.cli prove <program.bin|program.elf> --device cuda
                                  [--entry 0x1000] [--max-steps N] [--out proof.bin] [--input v1,v2,...]
+                                 [--v2]
 
-``execute``, ``verify``, ``new`` and ``build`` are zigz_tpu's own commands
-(they run no device code).  ``--v2``, ``--v3``, ``--v4`` and ``--supervise``
-are not ported yet and exit non-zero.
+``--v2`` selects protocol v2.  ``execute``, ``verify``, ``new`` and
+``build`` are zigz_tpu's own commands (they run no device code).  ``--v3``,
+``--v4`` and ``--supervise`` are not ported yet and exit non-zero.
 """
 
 from __future__ import annotations
@@ -20,15 +21,15 @@ from zigz_tpu.prover.serialization import BinarySerializer
 
 from .prover.prover import Prover
 
-USAGE = """zigz-tpu-torch — the zigz_tpu v1 prover on PyTorch and CUDA
+USAGE = """zigz-tpu-torch — the zigz_tpu v1 and v2 provers on PyTorch and CUDA
 
   python -m zigz_tpu_torch.cli prove <program.bin|program.elf> --device cuda|cpu
-      [--entry 0x1000] [--max-steps N] [--out proof.bin] [--input v1,v2,...]
+      [--entry 0x1000] [--max-steps N] [--out proof.bin] [--input v1,v2,...] [--v2]
 
   execute | verify | new | build: as python -m zigz_tpu.cli
 """
 
-_NOT_PORTED = ("--v2", "--v3", "--v4", "--supervise")
+_NOT_PORTED = ("--v3", "--v4", "--supervise")
 
 
 def cmd_prove(args) -> int:
@@ -38,7 +39,7 @@ def cmd_prove(args) -> int:
         return 1
     for flag in _NOT_PORTED:
         if flag in args:
-            print(f"error: {flag} is not yet ported to zigz_tpu_torch (protocol v1 only)",
+            print(f"error: {flag} is not yet ported to zigz_tpu_torch (protocols v1 and v2 only)",
                   file=sys.stderr)
             return 1
     device = _parse_str(args, "--device")
@@ -52,7 +53,8 @@ def cmd_prove(args) -> int:
     input_str = _parse_str(args, "--input")
     input_tape = [int(v) for v in input_str.split(",")] if input_str else None
 
-    prover = Prover(F, seed=0, device=device)
+    protocol_version = 2 if "--v2" in args else 1
+    prover = Prover(F, seed=0, device=device, protocol_version=protocol_version)
     t0 = time.perf_counter()
     proof = prover.prove(program, entry_pc, None, max_steps, segments, input_tape)
     prove_ms = (time.perf_counter() - t0) * 1000
@@ -63,7 +65,7 @@ def cmd_prove(args) -> int:
     else:
         proof_size = len(BinarySerializer(F).serialize(proof))
     print(f"prove: {prove_ms:.0f} ms, proof size {proof_size} bytes, "
-          f"steps {proof.metadata.num_steps}, device {prover.device}")
+          f"steps {proof.metadata.num_steps}, protocol v{protocol_version}, device {prover.device}")
     if proof.public_io.outputs:
         print(f"outputs: {proof.public_io.outputs}")
     if out_path:

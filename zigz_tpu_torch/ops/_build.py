@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels and loads them through ctypes.
 
 The sources are ``zigz_tpu_torch/csrc/*.cu`` (and the headers they include)
-and nothing else.  ``nvcc`` compiles them for ``sm_90a`` into one shared
-library with a plain C interface, at first use, under
+and nothing else.  At first use, ``nvcc`` compiles each unit for ``sm_90a``
+into an object file, one process per unit, all started together, then links
+the objects into one shared library with a plain C interface, under
 ``build/zigz_tpu_torch/`` in the checkout.  The library's file name carries a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the library.
@@ -41,17 +42,21 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "zigz_tpu_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers and spills of each kernel, kept in Kernels.log
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 NVCC_TIMEOUT_S = 600
 
 # name -> (argtypes, restype) of every extern "C" function in csrc/.
-_LAUNCHER = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p], ctypes.c_int)
+_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_LAUNCHER = ([_PTR, _PTR, _I64, _PTR], _INT)
 _SYMBOLS = {
     "zigz_sha3_leaves": _LAUNCHER,
     "zigz_sha3_merge": _LAUNCHER,
-    "zigz_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "zigz_sha3_columns": ([_PTR, _PTR, _I64, _I64, _PTR], _INT),
+    "zigz_sha3_absorb": ([_PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _PTR], _INT),
+    "zigz_cuda_error_string": ([_INT], ctypes.c_char_p),
 }
 
 
@@ -98,30 +103,65 @@ def _library_path(units, headers) -> Path:
     for path in units + headers:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libzigz_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def _run_nvcc(procs) -> str:
+    """Wait for every (cmd, Popen) in ``procs``; raise on the first failure.
+    Returns their output, in order."""
+    log = []
+    failed = None
+    deadline = time.monotonic() + NVCC_TIMEOUT_S
+    for cmd, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for _, other in procs:
+                other.kill()
+                other.communicate()
+            raise KernelBuildError(f"nvcc timed out after {NVCC_TIMEOUT_S} s: {' '.join(cmd)}") from None
+        log.append(err + out)
+        if proc.returncode != 0 and failed is None:
+            failed = KernelBuildError(f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{err}{out}")
+    if failed is not None:
+        raise failed
+    return "".join(log)
+
+
+def _start(cmd):
+    try:
+        return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    except OSError as exc:
+        raise KernelBuildError(f"could not run nvcc ({cmd[0]}): {exc}") from exc
 
 
 def _compile(nvcc: str, units, out: Path) -> tuple:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{unit.stem}.o" for unit in units]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, units)]
     t0 = time.perf_counter()
+    procs = []
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-    except subprocess.TimeoutExpired as exc:
-        raise KernelBuildError(f"nvcc timed out after {NVCC_TIMEOUT_S} s: {' '.join(cmd)}") from exc
-    except OSError as exc:
-        raise KernelBuildError(f"could not run nvcc ({nvcc}): {exc}") from exc
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
+        for unit, obj in zip(units, objects):
+            procs.append(_start([nvcc, *NVCC_FLAGS, "-c", str(unit), "-o", str(obj)]))
+        log = _run_nvcc(procs)
+        log += _run_nvcc([_start([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)])])
+    except KernelBuildError:
+        for _, proc in procs:  # a unit that could not start leaves the others running
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed (rc {res.returncode}): {' '.join(cmd)}\n{res.stderr}{res.stdout}"
-        )
+        raise
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
     # Atomic publish: a concurrent process never loads a half-written file.
     os.replace(tmp, out)
-    return seconds, res.stderr + res.stdout
+    return seconds, log
 
 
 def _build_and_load() -> Kernels:
