@@ -6,24 +6,33 @@ that machine need not have, hence --noconftest):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 Digests and proof bytes are compared whole: tolerance zero.  This file
-imports no JAX."""
+imports no JAX and nothing of the JAX package: the references are the
+kernels' plain PyTorch versions, hashlib, the golden fixtures, the port's
+host provers and the pinned digests of
+zigz_tpu_torch/testdata/proof_digests.json."""
 
 import hashlib
+import json
 import pathlib
 
 import numpy as np
 import pytest
 import torch
 
-from zigz_tpu_torch import BabyBear, Prover, elf, serialization
+from zigz_tpu_torch import BabyBear, Prover, Verifier, elf, serialization
 from zigz_tpu_torch.commitments.device_forest import DeviceMerkleForest
 from zigz_tpu_torch.commitments.ligero import ligero_commit_mixed
-from zigz_tpu_torch.ops import keccak, ligero_dev, witness_dev
-from zigz_tpu_torch.prover.prover import ReferenceProver
+from zigz_tpu_torch.core.ext4 import ext_from_ints
+from zigz_tpu_torch.core.hash import FiatShamirTranscript
+from zigz_tpu_torch.lookups import pipeline_lasso
+from zigz_tpu_torch.ops import ext4_dev, keccak, ligero_dev, witness_dev, zerocheck_dev_ext
+from zigz_tpu_torch.proofs.zerocheck import ZerocheckExtProver, count_zerocheck_proofs
 
 pytestmark = pytest.mark.cuda
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
+PINNED = json.loads((pathlib.Path(__file__).resolve().parent.parent / "zigz_tpu_torch" / "testdata"
+                     / "proof_digests.json").read_text())["proofs"]
 P = BabyBear.MODULUS
 
 
@@ -126,14 +135,79 @@ def test_mixed_commit_on_the_card_matches_the_cpu(cuda):
     assert np.array_equal(on_card.encoded.gather(idx), on_cpu.encoded.gather(idx))
 
 
-def test_v2_prove_on_the_card_matches_zigz_tpu(cuda, monkeypatch):
-    program = (FIXTURES / "add_program.bin").read_bytes()
+def test_v2_prove_on_the_card_matches_zigz_tpu(cuda):
+    """The v2 prove of the fibonacci guest on the card: zigz_tpu's bytes
+    (the pinned digest), the commitments through K5, every zerocheck on
+    GenericDeviceZerocheckExt and fed from the resident matrices, the Lasso
+    rounds on the card, accepted by the verifier."""
+    case = PINNED["v2-fibonacci-10000"]
+    program = (FIXTURES / case["program"]["name"]).read_bytes()
+    loaded = elf.load(program)
     ser = serialization.BinarySerializer(BabyBear)
     ligero_dev.LAUNCHES.update(columns=0, absorb=0)
+    zerocheck_dev_ext.reset_counters()
+    pipeline_lasso.DEVICE_ROUNDS["count"] = 0
     prover = Prover(BabyBear, seed=0, device=cuda, protocol_version=2)
-    data = ser.serialize(prover.prove(program, 0x1000, None, 1 << 16, None, None))
+    proof = prover.prove(program, loaded.entry_pc, None, case["max_steps"], loaded.segments, case["program"]["tape"])
+    data = ser.serialize(proof)
     assert ligero_dev.LAUNCHES["absorb"] > 0
     assert prover.last_timings["data_commit_path"] == "stream-dev"
-    monkeypatch.setenv("ZIGZ_TPU_COMMITMENTS", "host")
-    ref = ReferenceProver(BabyBear, seed=0, protocol_version=2).prove(program, 0x1000, None, 1 << 16, None, None)
-    assert data == ser.serialize(ref)
+    assert zerocheck_dev_ext.DEVICE_PROVES["count"] == count_zerocheck_proofs(proof) >= 12
+    assert zerocheck_dev_ext.COLUMNS["resident"] > 0 and pipeline_lasso.DEVICE_ROUNDS["count"] > 0
+    assert (proof.metadata.num_steps, len(data), hashlib.sha256(data).hexdigest()) == (
+        case["num_steps"], case["bytes"], case["sha256"])
+    assert Verifier(BabyBear).verify(ser.deserialize(data), program) == "Accept"
+
+
+def test_ext_zerocheck_of_a_real_v2_combiner_on_the_card_matches_native(cuda):
+    """The core argument's combiner at width 2^16: the card's rounds against
+    the native C++ prover (device=None), same transcript and proof."""
+    from zigz_tpu_torch.constraints import v2
+    from zigz_tpu_torch.constraints.core_arg import CORE_COLUMNS, V2_G_COLUMNS
+    from zigz_tpu_torch.ops.zerocheck_native import native_available
+
+    assert native_available()
+    rng = np.random.default_rng(23)
+    tau, beta = (ext_from_ints([int(x) for x in rng.integers(0, P, size=4)]) for _ in range(2))
+    comb = v2.make_v2_combiner(tau, beta)
+    num_vars = 16
+    n = 1 << num_vars
+    cols = {name: rng.integers(0, P, size=n, dtype=np.uint64) for name in (*CORE_COLUMNS, *V2_G_COLUMNS)}
+    cols.update(v2.logup_public_tables(n, num_vars, P))
+
+    def prove(device):
+        t = FiatShamirTranscript()
+        proof = ZerocheckExtProver(BabyBear, cols, comb, v2.V2_DEGREE, num_alphas=v2.NUM_V2_ALPHAS,
+                                   device=device).prove(t)
+        return t.finalize(), [[g.to_ints() for g in r] for r in proof.round_evals], [
+            r.to_ints() for r in proof.final_point], {k: e.to_ints() for k, e in proof.column_evals.items()}
+
+    zerocheck_dev_ext.reset_counters()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    on_card = prove(cuda)
+    assert zerocheck_dev_ext.DEVICE_PROVES["count"] == 1 and zerocheck_dev_ext.DEVICE_PROVES["sweep_launches"] > 0
+    assert torch.cuda.max_memory_allocated(cuda) > 0
+    assert on_card == prove(None)
+    assert zerocheck_dev_ext.DEVICE_PROVES["count"] == 1  # the native prover is not counted
+
+
+def test_ext4_and_lasso_rounds_on_the_card_match_the_cpu(cuda):
+    rng = np.random.default_rng(31)
+    t4 = torch.from_numpy(rng.integers(0, P, size=(4, 5, 1 << 10), dtype=np.int64))
+    t4[:, 0, :2] = torch.tensor([0, P - 1])
+    r = [int(x) for x in rng.integers(0, P, size=4)]
+    for fn, arg in ((ext4_dev.ext_fold_dev, t4), (ext4_dev.ext_fold_base_dev, t4[0]),
+                    (ext4_dev.ext_scale_dev, t4), (ext4_dev.ext_inv_dev, t4[:, 0])):
+        args = (r,) if fn is not ext4_dev.ext_inv_dev else ()
+        assert torch.equal(fn(arg.to(cuda), *args).cpu(), fn(arg, *args))
+    assert torch.equal(ext4_dev.ext_mul_dev(t4.to(cuda), t4.flip(-1).to(cuda)).cpu(), ext4_dev.ext_mul_dev(t4, t4.flip(-1)))
+    taus = [[int(x) for x in rng.integers(0, P, size=4)] for _ in range(12)]
+    assert torch.equal(ext4_dev.ext_eq_table_dev(taus, 1 << 12, cuda).cpu(), ext4_dev.ext_eq_table_dev(taus, 1 << 12, "cpu"))
+
+    evals = rng.integers(0, P, size=1 << 15, dtype=np.uint64)
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        t = FiatShamirTranscript()
+        rounds, point, final = pipeline_lasso._sumcheck_rounds_device(BabyBear, t, evals.copy(), device)
+        results.append(([[c.value for c in row] for row in rounds], [c.value for c in point], final.value, t.finalize()))
+    assert results[0] == results[1]

@@ -20,7 +20,10 @@ from zigz_tpu.core.field import BabyBear as F
 from zigz_tpu.core.hash import FiatShamirTranscript
 from zigz_tpu.ops.ntt_dev import encode_rows_device
 from zigz_tpu.proofs.batch_eval import mixed_claim_from_rho
+from zigz_tpu_torch.commitments import ligero as port_ligero
 from zigz_tpu_torch.commitments.ligero import ligero_commit_mixed
+from zigz_tpu_torch.core.ext4 import Ext4 as PortExt4
+from zigz_tpu_torch.core.hash import FiatShamirTranscript as PortTranscript
 from zigz_tpu_torch.ops import ligero_dev, ntt_dev
 from zigz_tpu_torch.ops.keccak import digests_to_bytes
 
@@ -200,15 +203,35 @@ def test_ligero_commit_mixed_matches_jax():
     pp = ref.ligero_prove_mixed(port, [claim], tp)
     assert all(np.array_equal(a.c, b.c) for a, b in zip(ph.us, pp.us))
     assert np.array_equal(ph.columns, pp.columns) and ph.nodes == pp.nodes
-    assert th.challenge_value(P) == tp.challenge_value(P)
+    next_challenge = th.challenge_value(P)
+    assert next_challenge == tp.challenge_value(P)
+
+    # The port's own opening (its own Ext4 and transcript classes) on the
+    # same claim: the same rows, columns, nodes and transcript state.
+    own_claim = port_ligero.LigeroMixedClaim(
+        b=PortExt4(claim.b.c), entries={k: (PortExt4(a.c), PortExt4(v.c)) for k, (a, v) in claim.entries.items()})
+    to = PortTranscript()
+    po = port_ligero.ligero_prove_mixed(port, [own_claim], to)
+    assert all(np.array_equal(a.c, b.c) for a, b in zip(ph.us, po.us))
+    assert np.array_equal(ph.columns, po.columns) and ph.nodes == po.nodes
+    assert to.challenge_value(P) == next_challenge
 
 
 def test_streamed_state_offers_no_device_column():
-    """zigz_tpu's zerochecks must not receive the port's torch tensor as a
-    JAX device column: the port's state has no ``mat_dev``."""
-    port = ligero_commit_mixed(F, _mixed_columns(3), "sha3", device="cpu")
-    assert not hasattr(port.encoded, "mat_dev")
-    assert all(port.device_column(name) is None for name in port.names)
+    """A name the commitment does not hold gets no device column; every
+    committed column is offered as a slice of the resident matrix
+    (``mat_dev``) that reproduces it, zero padding of short columns cut."""
+    cols = _mixed_columns(3)
+    port = ligero_commit_mixed(F, cols, "sha3", device="cpu")
+    assert port.device_column("not-committed") is None
+    assert port.encoded.mat_dev.dtype == torch.int32 and tuple(port.encoded.mat_dev.shape) == port.matrix.shape
+    for name in port.names:
+        ref_col = port.device_column(name)
+        assert ref_col.mat is port.encoded.mat_dev and ref_col.length == len(cols[name])
+        assert ref_col.resolve().tolist() == cols[name].tolist()
+    # a commitment whose matrix is host numpy offers none
+    rows = _words(np.stack([_canonical(1 << 6, seed=k) for k in range(2)]))
+    assert ligero_dev.ligero_commit_device(F, ["a", "b"], rows).device_column("a") is None
 
 
 def test_ligero_commit_mixed_reports_its_phases():

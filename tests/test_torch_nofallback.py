@@ -6,6 +6,9 @@
   load; it never returns a fallback.
 * The Ligero entry points on a CUDA tensor build the kernels or raise;
   they never hash on the host.
+* The zerocheck and Lasso dispatch with a device never goes back to the
+  host provers: an absent CUDA device raises, a combiner outside the traced
+  algebra raises ``TraceError``, and there is no width gate.
 * The port reads no ``ZIGZ_TPU_*`` environment variable.
 * ``chip_smoke.py`` exits non-zero and prints no result without a card.
 """
@@ -19,11 +22,17 @@ import numpy as np
 import pytest
 import torch
 
-from zigz_tpu.core.field import BabyBear as F
+from zigz_tpu_torch.core.field import BabyBear as F
 from zigz_tpu_torch.commitments.ligero import ligero_commit_mixed
 from zigz_tpu_torch.device import card_info, resolve_device
 from zigz_tpu_torch.ops import _build, ligero_dev, witness_dev
+from zigz_tpu_torch.core.hash import FiatShamirTranscript
+from zigz_tpu_torch.lookups import pipeline_lasso
+from zigz_tpu_torch.ops import zerocheck_dev_ext
+from zigz_tpu_torch.ops.symtrace import TraceError
+from zigz_tpu_torch.proofs.zerocheck import ZerocheckExtProver
 from zigz_tpu_torch.prover.prover import Prover
+from zigz_tpu_torch.prover.unified import prove_unified
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -133,12 +142,63 @@ def test_ligero_commits_on_cuda_raise_without_a_card(no_cuda):
         Prover(F, device="cuda", protocol_version=2)
 
 
+def _zerocheck_columns(n=8):
+    a = np.arange(n, dtype=np.uint64)
+    return {"a": a, "b": a + np.uint64(1), "c": a * (a + np.uint64(1))}
+
+
+def _vanishing(cols, alphas, p):
+    return alphas[0] * ((cols["a"] * cols["b"] % p + p - cols["c"]) % p) % p
+
+
+def _untraceable(cols, alphas, p):
+    """A reduction by another modulus: outside the traced ring algebra."""
+    return _vanishing(cols, alphas, p) + cols["a"] % 7
+
+
+def test_zerocheck_and_lasso_on_cuda_raise_without_a_card(no_cuda):
+    with pytest.raises(RuntimeError, match="cuda"):
+        ZerocheckExtProver(F, _zerocheck_columns(), _vanishing, 3, num_alphas=1,
+                           device="cuda").prove(FiatShamirTranscript())
+    queries = {1: (np.ones((3, 2), dtype=np.uint64), np.ones((3, 1), dtype=np.uint64))}
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        pipeline_lasso.prove_pipeline_lasso(F, FiatShamirTranscript(), queries, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        prove_unified(F, FiatShamirTranscript(), [], device="cuda")
+
+
+def test_zerocheck_trace_error_raises_on_a_device():
+    """With a device a TraceError is not caught (the host dispatch would
+    hand such a combiner to the numpy prover), and the transcript is
+    untouched when it raises."""
+    cols = _zerocheck_columns()
+    zerocheck_dev_ext.reset_counters()
+    transcript = FiatShamirTranscript()
+    with pytest.raises(TraceError, match="reduction by 7"):
+        ZerocheckExtProver(F, cols, _untraceable, 3, num_alphas=1, device="cpu").prove(transcript)
+    assert zerocheck_dev_ext.DEVICE_PROVES["count"] == 0
+    assert transcript.finalize() == FiatShamirTranscript().finalize()
+
+
+@pytest.mark.parametrize("n", [2, 8, 1 << 13])
+def test_zerocheck_with_a_device_has_no_width_gate(n):
+    zerocheck_dev_ext.reset_counters()
+    ZerocheckExtProver(F, _zerocheck_columns(n), _vanishing, 3, num_alphas=1,
+                       device="cpu").prove(FiatShamirTranscript())
+    assert zerocheck_dev_ext.DEVICE_PROVES["count"] == 1
+
+
 def test_port_reads_no_zigz_tpu_variable(monkeypatch):
     """zigz_tpu's ZIGZ_TPU_COMMITMENTS=host forces its host commit; the
     port's commit stays on its device path."""
     monkeypatch.setenv("ZIGZ_TPU_COMMITMENTS", "host")
+    monkeypatch.setenv("ZIGZ_TPU_ZEROCHECK", "native")
     cols = {"a": np.arange(1 << 6, dtype=np.uint64), "b": np.arange(1 << 3, dtype=np.uint64)}
     assert ligero_commit_mixed(F, cols, device="cpu").commit_path == "stream-dev"
+    zerocheck_dev_ext.reset_counters()
+    ZerocheckExtProver(F, _zerocheck_columns(), _vanishing, 3, num_alphas=1,
+                       device="cpu").prove(FiatShamirTranscript())
+    assert zerocheck_dev_ext.DEVICE_PROVES["count"] == 1
     sources = sorted((ROOT / "zigz_tpu_torch").rglob("*.py"))
     assert sources and not [p.name for p in sources if "ZIGZ_TPU_" in p.read_text()]
 

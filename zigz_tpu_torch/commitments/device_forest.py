@@ -24,7 +24,7 @@ from typing import List
 import numpy as np
 import torch
 
-from zigz_tpu.commitments.merkle import MerklePath, OpeningProof
+from .merkle import MerklePath, OpeningProof
 
 from ..ops import babybear as bb
 from ..ops import keccak, mle

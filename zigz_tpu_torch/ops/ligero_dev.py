@@ -34,7 +34,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from zigz_tpu.commitments.ligero import LigeroCommitState, LigeroParams, _build_levels
+from ..commitments.ligero import LigeroCommitState, LigeroParams, _build_levels
 
 from . import _build
 from .babybear import P
@@ -189,18 +189,17 @@ def gather_encoded_columns(mat: torch.Tensor, n_e: int, indices: Sequence[int]) 
 
 class StreamedEncoded:
     """``LigeroCommitState.encoded`` of a streamed commit: holds the INPUT
-    matrix on the device; opened columns re-encode on demand.
+    matrix on the device as ``mat_dev`` ((rows, n) canonical int32 words);
+    opened columns re-encode on demand, and
+    ``LigeroCommitState.device_column`` hands slices of it to the device
+    zerochecks."""
 
-    The matrix is deliberately not called ``mat_dev``: zigz_tpu's
-    ``LigeroCommitState.device_column`` looks for that name and would hand
-    the torch tensor to its JAX zerocheck provers."""
-
-    def __init__(self, rows: torch.Tensor, n_e: int):
-        self.rows = rows
+    def __init__(self, mat_dev: torch.Tensor, n_e: int):
+        self.mat_dev = mat_dev
         self.n_e = n_e
 
     def gather(self, indices) -> np.ndarray:
-        return gather_encoded_columns(self.rows, self.n_e, indices)
+        return gather_encoded_columns(self.mat_dev, self.n_e, indices)
 
 
 def ligero_commit_device(F, names, rows: torch.Tensor) -> LigeroCommitState:
@@ -210,9 +209,9 @@ def ligero_commit_device(F, names, rows: torch.Tensor) -> LigeroCommitState:
     ``sorted(names)`` order.  Root, leaf digests and levels equal zigz_tpu's
     ``ligero_commit`` of the same columns.  The matrix and the encoded
     matrix are handed over as host numpy (uint64 and uint32, as
-    ``ligero_commit`` has them), so zigz_tpu's ``ligero_prove_eval`` and
-    ``ligero_column_evals`` take their host branches.  zigz_tpu's default
-    ``LigeroParams``; SHA3 only (the v4 hash mode)."""
+    ``ligero_commit`` has them), for ``ligero_prove_eval`` and
+    ``ligero_column_evals``.  The default ``LigeroParams``; SHA3 only (the
+    v4 hash mode)."""
     if F.MODULUS != P:
         raise ValueError(f"the port's field is BabyBear (p = {P}), not {F.MODULUS}")
     if rows.dim() != 2 or rows.dtype != torch.int32:

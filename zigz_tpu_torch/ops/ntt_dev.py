@@ -27,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from zigz_tpu.commitments.ligero import _bit_reverse_indices, _twiddles
+from ..commitments.ligero import _bit_reverse_indices, _twiddles
 
 from .babybear import P
 

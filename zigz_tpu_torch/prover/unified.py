@@ -1,35 +1,116 @@
-"""The v2 unified commitment harness with its Ligero commits on a torch device.
+"""Unified commitment harness for the v2+ argument pipeline (round 3).
 
-Counterpart of zigz_tpu/prover/unified.py ``prove_unified``, with the same
-transcript schedule (DATA commit, ADVICE commit, zerochecks, batch-eval
-reduction, two openings) and the same ``timings`` keys.  The arguments'
-phases, their zerochecks, the batch-eval sumcheck and the openings are
-zigz_tpu's host code, reused by import; the two commitments are the port's
-``ligero_commit_mixed``, whose leaf hashing runs in the K5 kernel.
+Round 2 gave every argument (pc-chain logUp, lookup validity, regcheck,
+memcheck, bytecode, linkage) its own Ligero commitments and its own
+openings — ~20 commitments x (128 opened columns + Merkle paths +
+extension query/proximity rows) per proof.  This harness restructures the
+pipeline into the standard phased schedule so those costs are paid ONCE:
 
-Not ported here: the mesh path (slice 5) and the device advice builders
-(ops/advice_dev, ROADMAP A12), so ``advice_dev_cols`` is 0 and the ADVICE
-matrix is uploaded from the host like the DATA matrix.  The proof bytes do
-not depend on either.  zigz_tpu's zerochecks receive no device columns
-(the port's commit states offer none), so they take their native C++
-provers.
+  1. DATA    — every argument absorbs its public block and returns its
+               challenge-independent columns; ONE mixed-length Ligero
+               commitment binds them all ("V2_DATA" + root).
+  2. ADVICE  — every argument draws its fingerprint challenges (nonce
+               retry loops fork the transcript as before) and returns its
+               logUp inverse / multiplicity-inverse columns as base
+               coordinate columns; ONE commitment binds them
+               ("V2_ADVICE" + root) after the per-argument sums are
+               absorbed.
+  3. ZEROCHECKS — unchanged per-argument extension zerochecks (their
+               round polynomials and terminal column evals bind to the
+               transcript), each registering its terminal evaluation
+               claims and hypercube-sum claims with the claim sink.
+  4. REDUCE  — one batch-evaluation sumcheck (proofs/batch_eval.py)
+               folds every claim to a single point rho.
+  5. OPEN    — each commitment is opened once with a LigeroMixedClaim
+               whose weights both sides derive from rho.
+
+An Argument object implements data_phase/advice_phase/zerocheck_phase on
+the prover side and the same trio on the verifier side (replaying
+absorbs, re-deriving challenges from the proof-carried nonce, verifying
+zerochecks, and registering the SAME claims).  Cross-argument data
+(e.g. the bytecode argument referencing regcheck's committed operand
+columns) flows through a shared ``ctx`` dict and the per-argument
+``locmap`` (local name -> (commitment key, namespaced name, num_vars)).
+
+The standalone prove_regcheck/verify_regcheck (etc.) entry points reuse
+this harness with a single argument, so each argument keeps its own
+self-contained test surface.
+
+Counterpart of zigz_tpu/prover/unified.py with the device work on a torch
+device: ``prove_unified`` takes an explicit ``device``, the two
+commitments are encoded and column-hashed there (commitments/ligero.py,
+the K5 kernel), and every argument is handed the device next to the commit
+states, so its zerochecks run on ``GenericDeviceZerocheckExt`` and read
+the committed columns from the resident matrices.  The transcript
+schedule and the ``timings`` keys are the JAX package's.  Not ported: the
+mesh path and the device advice builders (zigz_tpu/ops/advice_dev.py), so
+``advice_dev_cols`` is 0 and the ADVICE columns are built on the host.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from zigz_tpu.commitments.ligero import LigeroCommitState, ligero_prove_mixed
-from zigz_tpu.proofs.batch_eval import mixed_claim_from_rho, prove_batch_eval
-from zigz_tpu.prover.unified import ClaimSink, UnifiedProof, _namespace
-
-from ..commitments.ligero import ligero_commit_mixed
+from ..commitments.ligero import (
+    LigeroCommitState,
+    LigeroEvalProof,
+    LigeroParams,
+    choose_split_mixed,
+    ligero_commit_mixed,
+    ligero_prove_mixed,
+    ligero_verify_mixed,
+)
+from ..core.ext4 import Ext4
 from ..device import resolve_device, synchronize
+from ..proofs.batch_eval import (
+    BatchClaim,
+    BatchEvalProof,
+    mixed_claim_from_rho,
+    prove_batch_eval,
+    verify_batch_eval,
+)
 
-__all__ = ["prove_unified"]
+__all__ = ["ClaimSink", "UnifiedProof", "prove_unified", "verify_unified"]
+
+
+class ClaimSink:
+    """Ordered claim collector shared by all arguments of one proof."""
+
+    def __init__(self):
+        self.claims: List[BatchClaim] = []
+
+    def eval_claim(self, commit_key: str, name: str, num_vars: int,
+                   point: List[Ext4], value: Ext4) -> None:
+        self.claims.append(BatchClaim(commit_key, name, num_vars, point, value))
+
+    def sum_claim(self, commit_key: str, name: str, num_vars: int,
+                  value: Ext4) -> None:
+        self.claims.append(BatchClaim(commit_key, name, num_vars, None, value))
+
+
+@dataclass
+class UnifiedProof:
+    data_root: Optional[bytes]
+    advice_root: Optional[bytes]
+    batch: Optional[BatchEvalProof]
+    data_open: Optional[LigeroEvalProof]
+    advice_open: Optional[LigeroEvalProof]
+
+
+def _namespace(arg, cols: Dict[str, np.ndarray], commit_key: str,
+               full: Dict[str, np.ndarray]) -> None:
+    for local, arr in cols.items():
+        fn = f"{arg.ns}:{local}"
+        assert fn not in full, f"duplicate column {fn}"
+        ln = len(arr)
+        assert ln & (ln - 1) == 0 and ln >= 1, \
+            f"column {fn} must be a power-of-two length >= 1 (got {ln})"
+        arg.locmap[local] = (commit_key, fn, ln.bit_length() - 1)
+        full[fn] = arr
 
 
 def _commit(F, key: str, columns, hash_mode, device, timings) -> LigeroCommitState:
@@ -77,6 +158,7 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
     states = {"data": data_state, "advice": advice_state}
     for a in args:
         a._unified_states = states
+        a._unified_device = device
     for a in args:
         a.zerocheck_phase(transcript, sink)
     if timings is not None:
@@ -112,3 +194,100 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
         data_open=opened["data"],
         advice_open=opened["advice"],
     )
+
+
+def verify_unified(F, transcript, args: List, proof: UnifiedProof,
+                   hash_mode: str = "sha3") -> Optional[str]:
+    """Mirror of prove_unified.  Verifier-side arguments implement:
+    data_phase(t) -> {local: num_vars} (replaying the public absorbs and
+    returning the STRUCTURAL column sizes), advice_phase(t) -> same for
+    advice columns (replaying nonce/challenges/sums and checking the
+    grand logUp equations), zerocheck_phase(t, sink) -> bool (verifying
+    its zerochecks and registering the same claims).
+
+    Returns None on success, or the failing stage: an argument's ``ns``
+    or "__commit__" (root/claim structure), "__batch__" (batch-eval
+    reduction), "__open__" (Ligero opening)."""
+    if not isinstance(proof, UnifiedProof):
+        return "__commit__"
+    data_vars: Dict[str, int] = {}
+    for a in args:
+        a.locmap = getattr(a, "locmap", {})
+        shape = a.data_phase(transcript)
+        if shape is None:
+            return a.ns
+        for local, v in shape.items():
+            fn = f"{a.ns}:{local}"
+            if fn in data_vars or v < 0:
+                return a.ns
+            a.locmap[local] = ("data", fn, v)
+            data_vars[fn] = v
+
+    if bool(data_vars) != (proof.data_root is not None):
+        return "__commit__"
+    if data_vars:
+        transcript.append_bytes(b"V2_DATA")
+        transcript.append_bytes(proof.data_root)
+
+    advice_vars: Dict[str, int] = {}
+    for a in args:
+        shape = a.advice_phase(transcript)
+        if shape is None:
+            return a.ns
+        for local, v in shape.items():
+            fn = f"{a.ns}:{local}"
+            if fn in advice_vars or v < 0:
+                return a.ns
+            a.locmap[local] = ("advice", fn, v)
+            advice_vars[fn] = v
+
+    if bool(advice_vars) != (proof.advice_root is not None):
+        return "__commit__"
+    if advice_vars:
+        transcript.append_bytes(b"V2_ADVICE")
+        transcript.append_bytes(proof.advice_root)
+
+    sink = ClaimSink()
+    for a in args:
+        if not a.zerocheck_phase(transcript, sink):
+            return a.ns
+
+    if not sink.claims:
+        if proof.batch is None and proof.data_open is None \
+                and proof.advice_open is None:
+            return None
+        return "__commit__"
+
+    # Structural check: every claim must reference a committed column of
+    # the declared width.
+    all_vars = {("data", fn): v for fn, v in data_vars.items()}
+    all_vars.update({("advice", fn): v for fn, v in advice_vars.items()})
+    for c in sink.claims:
+        if all_vars.get((c.commitment, c.name)) != c.num_vars:
+            return "__commit__"
+
+    if proof.batch is None:
+        return "__batch__"
+    if not verify_batch_eval(sink.claims, proof.batch, transcript):
+        return "__batch__"
+
+    rho = proof.batch.final_point
+    params = LigeroParams()
+    for key, root, col_vars, opened in (
+        ("data", proof.data_root, data_vars, proof.data_open),
+        ("advice", proof.advice_root, advice_vars, proof.advice_open),
+    ):
+        evals = {fn: v for (ck, fn), v in proof.batch.column_evals.items()
+                 if ck == key}
+        if not evals:
+            if opened is not None:
+                return "__open__"
+            continue
+        if opened is None or root is None:
+            return "__open__"
+        cn = choose_split_mixed(sum(1 << v for v in col_vars.values()), 1, params)
+        claim = mixed_claim_from_rho(col_vars, cn, rho, evals)
+        if not ligero_verify_mixed(F, root, col_vars, [claim], opened,
+                                   transcript, hash_mode):
+            return "__open__"
+    return None
