@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's v1 and v2 provers on one NVIDIA GPU and check them.
+"""Drive the PyTorch/CUDA port's v1 to v4 provers on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        (from the root of a checkout; needs one CUDA device)
 
@@ -39,6 +39,16 @@ the last line:
      times the counted instructions over 132 SMs x 64 INT32 lanes x the
      card's maximum SM clock.  No PyTorch call computes SHA3-256, so
      ``library_ms`` is null.
+     Then the device functions that are torch ops, not kernels (the JAX
+     package computes them in jnp): Poseidon2 ``p2_leaves``, ``p2_merge``
+     and the column sponge against the host core/poseidon2.py and
+     ``_hash_columns(..., "poseidon2")`` at 2^16 hashes and ragged sizes,
+     byte error 0; ``vecmat_device`` against the host ``_vecmat``; and the
+     time by CUDA events and the launches (``torch.profiler``) of each, of
+     ``encode_rows`` and of one Poseidon2 permutation at the widths of the
+     2^20 proves.  The three advice twins are held against the host
+     advice columns of every v2, v3 and v4 prove below, plane by plane,
+     after that prove has returned (its timings carry none of the check).
   3. the port's v1 proof bytes equal tests/fixtures/{nop4,add,fibonacci}_v1.bin.
   4. at 2^16 and 2^20 NOP steps and for the fibonacci guest (900,013
      steps), the port's v1 proof equals its pinned digest and verifies
@@ -55,14 +65,26 @@ the last line:
      proofs in the proof, and the Lasso device rounds must be > 0.  One
      line per case prints zerochecks_s, lasso_s, total_s, those counts,
      the columns read from the resident matrices against those uploaded,
-     the DAG sweep's launches and peak device memory.
+     the DAG sweep's launches and peak device memory, the advice planes
+     built on the device (148 at 2^20), the build time of each twin and
+     the ADVICE rows that were uploaded.
   7. ``ligero_commit_device`` of 43 random MLEs at 2^18: root, leaf digests
      and levels equal the port's host ``ligero_commit`` (the C++ encoder and
-     column hasher) of the same columns.
+     column hasher) of the same columns; the state, whose matrix lies on
+     the device, is opened with ``ligero_prove_eval`` (``vecmat_device``,
+     ``column_evals_device``) and verified with ``ligero_verify_eval``.
+  8. protocol v4 (the 43 witness MLEs under the DATA commitment, no
+     forest) at 2^16 and 2^20 NOP steps: pinned digest, Accept, K1 and K2
+     launches 0, K5 launches > 0, the DATA commit's total_rows, n and n_e.
+  9. protocol v3 (Poseidon2 forest and column sponge, torch ops) at 2^16
+     NOP steps, for the fibonacci guest (60,013 steps) and at 2^20 NOP
+     steps: pinned digest, Accept, no SHA3 kernel launched, the Poseidon2
+     permutation calls.
 
 The kernel launch counters are reset before each prove or commit and must
 be > 0 after it; the kernel line takes K1/K2's from phase 5, K5's from the
-2^20 prove of phase 6 and K4's from phase 7.  The last three lines are the
+2^20 prove of phase 6 (``launches_v4`` beside it from phase 8) and K4's from
+phase 7.  The last three lines are the
 kernel JSON line, the card's nvidia-smi line and the result line
 {"ok": true, "device": {...}}.
 """
@@ -84,7 +106,7 @@ P = 2013265921
 NOP = bytes([0x13, 0x00, 0x00, 0x00])
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES = 132 * 64  # SMs x INT32 lanes per SM and clock (Hopper white paper)
-V2_DATA_ROWS = 2130  # rows of the 2^20 v2 DATA commit, n = 2^16, n_e = 2^19
+V2_DATA_ROWS = 2089  # rows of the 2^20 v2 DATA commit, n = 2^16, n_e = 2^19
 
 
 def log(msg: str) -> None:
@@ -105,9 +127,16 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import zigz_tpu_torch as zt
     from zigz_tpu_torch.device import card_info
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zigz_tpu_torch.commitments import ligero
     from zigz_tpu_torch.commitments.ligero import ligero_commit
+    from zigz_tpu_torch.core import poseidon2 as p2_host
+    from zigz_tpu_torch.core.hash import FiatShamirTranscript
     from zigz_tpu_torch.lookups import pipeline_lasso
-    from zigz_tpu_torch.ops import _build, keccak, ligero_dev, ntt_dev, zerocheck_dev_ext
+    from zigz_tpu_torch.ops import _build, advice_dev, keccak, ligero_dev, ntt_dev, poseidon2, zerocheck_dev_ext
+    from zigz_tpu_torch.prover import unified
     from zigz_tpu_torch.proofs.zerocheck import count_zerocheck_proofs
     from zigz_tpu_torch import runtime
     from zigz_tpu_torch.runtime import native_vm
@@ -288,10 +317,61 @@ def main() -> int:
         log(f"phase 2 {name}: kernel == plain == hashlib (max byte err {r['max_abs_err']}); "
             f"{r['shape']}: kernel {r['ms']} ms, plain {r['plain_ms']} ms, "
             f"bound {r['bound_ms']} ms by {r['bound_by']}")
+    # The device functions that are torch ops: against their host twins,
+    # then ms by CUDA events and launches by the profiler.
+    def launches_of(fn, x) -> int:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(x)
+            torch.cuda.synchronize()
+        return sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+
+    def canonical(shape):
+        return torch.randint(0, P, shape, device=dev, dtype=torch.int32, generator=gen)
+
+    def host_u64(t):
+        return t.cpu().numpy().astype("uint64")
+
+    for n in (1, 255, 4097, 1 << 16):
+        vals = canonical((n,))
+        vals[:2] = torch.tensor([0, P - 1], device=dev, dtype=torch.int32)[:n]
+        leaf_limbs = poseidon2.p2_leaves(vals)
+        if poseidon2.limbs_to_bytes(leaf_limbs) != p2_host.np_batch_leaf_hashes(host_u64(vals)):
+            raise AssertionError(f"p2_leaves differs from core/poseidon2.py at n={n}")
+        level = canonical((8, 2 * n))
+        if poseidon2.limbs_to_bytes(poseidon2.p2_merge(level)) != p2_host.np_batch_merge_hashes(
+                poseidon2.limbs_to_bytes(level)):
+            raise AssertionError(f"p2_merge differs from core/poseidon2.py at n={n}")
+    for r, n in ((1, 1), (13, 256), (545, 128), (1100, 8)):
+        mat = canonical((r, n))
+        want = ligero._hash_columns(ligero.ntt_pow2_u32(host_u64(mat), 8 * n), "poseidon2")
+        if poseidon2.limbs_to_bytes(poseidon2.p2_columns_stream(mat, 8 * n)) != want:
+            raise AssertionError(f"the Poseidon2 column sponge differs from _hash_columns at ({r}, {n})")
+    weights = host_u64(canonical((688,)))
+    wide = words(688, 1 << 16)
+    if not (ligero_dev.vecmat_device(weights, wide) == ligero._vecmat(weights, host_u64(wide))).all():
+        raise AssertionError("vecmat_device differs from the host _vecmat")
+    log("phase 2 torch ops: p2_leaves, p2_merge == core/poseidon2.py at 1, 255, 4097, 65536 hashes; column sponge == "
+        "_hash_columns(poseidon2) at (1, 1), (13, 256), (545, 128), (1100, 8) rows x columns; vecmat_device == _vecmat: byte err 0")
+
     coeffs = words(544, 1 << 16)
-    log(f"phase 2 encode: (544, {1 << 16}) -> (544, {n_e}) in "
-        f"{event_ms(lambda m: ntt_dev.encode_rows(m, n_e), coeffs, 5)} ms (torch ops)")
-    del coeffs
+    enc_block = ntt_dev.encode_rows(coeffs, n_e)
+    leaf_vals = canonical((43 << 16,))
+    leaf_level = canonical((8, 43 << 16))
+    state_forest = canonical((16, poseidon2.CHUNK)).to(torch.int64)
+    state_sponge = canonical((16, n_e)).to(torch.int64)
+    torch_ops = {}
+    for name, fn, x, reps in (
+            (f"encode_rows (544, 65536) -> (544, {n_e})", lambda m: ntt_dev.encode_rows(m, n_e), coeffs, 5),
+            (f"permute_device (16, {poseidon2.CHUNK}) [forest chunk]", poseidon2.permute_device, state_forest, 3),
+            (f"permute_device (16, {n_e}) [column sponge]", poseidon2.permute_device, state_sponge, 5),
+            (f"p2_leaves ({43 << 16},) [2^16-step forest]", poseidon2.p2_leaves, leaf_vals, 3),
+            (f"p2_merge (8, {43 << 16})", poseidon2.p2_merge, leaf_level, 3),
+            (f"p2_absorb one 544-row block at n_e = {n_e} (68 permutations)",
+             lambda m: poseidon2.p2_absorb(state_sponge.clone(), m), enc_block, 1),
+            ("vecmat_device (688,) x (688, 65536)", lambda m: ligero_dev.vecmat_device(weights, m), wide, 5)):
+        torch_ops[name] = dict(ms=event_ms(fn, x, reps), launches=launches_of(fn, x))
+        log(f"phase 2 torch op {name}: {torch_ops[name]['ms']} ms, {torch_ops[name]['launches']} launches")
+    del coeffs, enc_block, leaf_vals, leaf_level, state_forest, state_sponge, wide
     torch.cuda.empty_cache()
 
     # -- proves ------------------------------------------------------------
@@ -369,58 +449,133 @@ def main() -> int:
     del data, program
     torch.cuda.empty_cache()
 
-    # -- phase 6: the v2 main path ------------------------------------------
-    def port_prove_v2(program, entry, segments, tape, max_steps):
+    # -- phases 6, 8, 9: the v2, v4 and v3 main paths -----------------------
+    # Every advice commit is watched: the spy keeps the device twins' planes
+    # and the host advice columns by reference, and after the prove has
+    # returned each plane is held against its host column, on the card.
+    # Nothing is copied, compared or synchronized inside the timed prove;
+    # the twins are timed by CUDA events that are read afterwards.
+    advice_seen = {}
+    commit_mixed = unified.ligero_commit_mixed
+
+    def watched_commit(F_, columns, hash_mode="sha3", *, device, dev_columns=None):
+        if dev_columns:
+            advice_seen["planes"] = dict(dev_columns)
+            advice_seen["host"] = columns
+        return commit_mixed(F_, columns, hash_mode, device=device, dev_columns=dev_columns)
+
+    unified.ligero_commit_mixed = watched_commit
+    twin_events = {}
+
+    def timed_twin(twin_name):
+        twin = getattr(advice_dev, twin_name)
+
+        def run(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = twin(*args, **kwargs)
+            end.record()
+            twin_events[twin_name] = (start, end)
+            return out
+
+        setattr(advice_dev, twin_name, run)
+
+    for twin_name in ("core_logup_advice_dev", "regcheck_advice_dev", "bytecode_advice_dev"):
+        timed_twin(twin_name)
+
+    def check_advice_planes():
+        """(planes, their bytes, ms per twin) of the last prove; raises where a
+        plane differs from the host advice column of the same prove."""
+        planes, host = advice_seen.pop("planes", {}), advice_seen.pop("host", {})
+        for col_name, plane in planes.items():
+            host_col = torch.from_numpy(host[col_name].astype("int64")).to(plane.device)
+            if not torch.equal(plane.to(torch.int64), host_col):
+                raise AssertionError(f"device advice plane {col_name} differs from the host advice column")
+        if sorted({c.split(":")[0] for c in planes}) != ["bc", "rc", "v2"]:
+            raise AssertionError(f"not every argument built its planes on the device: {sorted(planes)}")
+        torch.cuda.synchronize()
+        twin_ms = {name: start.elapsed_time(end) for name, (start, end) in twin_events.items()}
+        return len(planes), sum(pl.numel() * pl.element_size() for pl in planes.values()), twin_ms
+
+    def port_prove_v2(program, entry, segments, tape, max_steps, version=2):
         keccak.LAUNCHES.update(leaves=0, merge=0)
         ligero_dev.LAUNCHES.update(columns=0, absorb=0)
+        poseidon2.PERMUTATIONS["count"] = 0
+        ligero.STITCHED.update(dev_columns=0, host_rows=0)
         zerocheck_dev_ext.reset_counters()
         pipeline_lasso.DEVICE_ROUNDS["count"] = 0
+        advice_seen.clear()
+        twin_events.clear()
         torch.cuda.reset_peak_memory_stats(dev)
-        prover = zt.Prover(F, seed=0, device=dev, protocol_version=2)
+        prover = zt.Prover(F, seed=0, protocol_version=version)  # the default device: the card
+        if prover.device.type != "cuda":
+            raise AssertionError(f"Prover's default device is {prover.device}, not the card")
         proof = prover.prove(program, entry, None, max_steps, segments, tape)
-        counts = {**keccak.LAUNCHES, "absorb": ligero_dev.LAUNCHES["absorb"]}
-        if not all(counts.values()):
-            raise AssertionError(f"the v2 prove did not launch K1, K2 and K5: {counts}")
+        peak = torch.cuda.max_memory_allocated(dev)  # before the checks below allocate
+        counts = {**keccak.LAUNCHES, **ligero_dev.LAUNCHES, "p2_permutations": poseidon2.PERMUTATIONS["count"]}
+        if counts["columns"]:
+            raise AssertionError(f"K4 is on no prove, yet the v{version} prove launched it: {counts}")
+        # v2: SHA3 forest and sponge; v4: no forest; v3: Poseidon2 throughout.
+        want = {2: (True, True, True, False), 3: (False, False, False, True), 4: (False, False, True, False)}[version]
+        if tuple(bool(counts[k]) for k in ("leaves", "merge", "absorb", "p2_permutations")) != want:
+            raise AssertionError(f"the v{version} prove's launches are not those of its path: {counts}")
         device_work = {"zerochecks": count_zerocheck_proofs(proof),
                        "device_zerochecks": zerocheck_dev_ext.DEVICE_PROVES["count"],
                        "sweep_launches": zerocheck_dev_ext.DEVICE_PROVES["sweep_launches"],
                        "columns_resident": zerocheck_dev_ext.COLUMNS["resident"],
                        "columns_uploaded": zerocheck_dev_ext.COLUMNS["uploaded"],
-                       "lasso_device_rounds": pipeline_lasso.DEVICE_ROUNDS["count"]}
+                       "lasso_device_rounds": pipeline_lasso.DEVICE_ROUNDS["count"],
+                       "advice_planes_on_device": ligero.STITCHED["dev_columns"],
+                       "advice_rows_uploaded": ligero.STITCHED["host_rows"]}
         if device_work["device_zerochecks"] != device_work["zerochecks"] or not device_work["zerochecks"]:
             raise AssertionError(f"not every zerocheck ran on the device: {device_work}")
         if not device_work["lasso_device_rounds"] or not device_work["columns_resident"]:
             raise AssertionError(f"the Lasso rounds or the resident columns were not used: {device_work}")
+        planes_checked, planes_held_B, twin_ms = check_advice_planes()
+        if not (device_work["advice_planes_on_device"] == planes_checked
+                == prover.last_timings["advice_dev_cols"] == 148):
+            raise AssertionError(f"the advice planes were not all built on the device: {device_work}, "
+                                 f"{planes_checked} checked")
+        device_work.update(advice_twins_ms=twin_ms, planes_held_for_the_check_B=planes_held_B)
         paths = (prover.last_timings["data_commit_path"], prover.last_timings["advice_commit_path"])
         if paths != ("stream-dev", "stream-dev"):
-            raise AssertionError(f"the v2 commits did not take the device path: {paths}")
+            raise AssertionError(f"the v{version} commits did not take the device path: {paths}")
+        if bool(proof.witness_commitments) != (version != 4):
+            raise AssertionError(f"v{version}: {len(proof.witness_commitments)} witness commitments")
         data = ser.serialize(proof)
         verdict = zt.Verifier(F).verify(ser.deserialize(data), program)
         if verdict != "Accept":
-            raise AssertionError(f"the port's v2 proof was rejected: {verdict}")
-        return data, prover, counts, torch.cuda.max_memory_allocated(dev), device_work
+            raise AssertionError(f"the port's v{version} proof was rejected: {verdict}")
+        return data, prover, counts, peak, device_work
 
     v2_keys = ("total_s", "execute_s", "data_commit_s", "data_assemble_s", "data_upload_s",
-               "data_stream_s", "data_levels_s", "advice_build_s", "advice_commit_s",
+               "data_stream_s", "data_levels_s", "advice_build_s", "advice_dev_s", "advice_commit_s",
                "advice_assemble_s", "advice_upload_s", "advice_stream_s", "advice_levels_s",
                "zerochecks_s", "batch_eval_s", "open_s", "unified_s", "lasso_s", "witness_dev_s",
                "forest_s", "evals_s", "opens_s", "commitments_s")
-    for name in ("v2-nop-2^16", "v2-fibonacci-10000", "v2-nop-2^20"):
-        program, entry, segments, tape, max_steps, case = load_case(name)
-        data, prover, counts, peak, device_work = port_prove_v2(program, entry, segments, tape, max_steps)
-        if name == "v2-nop-2^20":
-            v2_counts = counts
-        t = prover.last_timings
-        check_pinned(name, case, data, t["num_steps"])
-        log(f"phase 6 {name}: steps {t['num_steps']}, {len(data)} B, sha256 {sha(data)[:16]} == pinned, Accept, "
-            f"commit paths {t['data_commit_path']}/{t['advice_commit_path']}, launches {counts}")
-        log(f"phase 6 {name} device rounds: zerochecks_s={t['zerochecks_s']} lasso_s={t['lasso_s']} "
-            f"total_s={t['total_s']} " + " ".join(f"{k}={v}" for k, v in device_work.items())
-            + f" peak_device_memory_B={peak}")
-        log("  port timings: " + " ".join(f"{k}={t[k]}" for k in v2_keys)
-            + f" steps_per_s={t['num_steps'] / t['total_s']}")
-        del data, program
-        torch.cuda.empty_cache()
+    launches_at_2_20 = {}
+    for phase, version, names in ((6, 2, ("v2-nop-2^16", "v2-fibonacci-10000", "v2-nop-2^20")),
+                                  (8, 4, ("v4-nop-2^16", "v4-nop-2^20")),
+                                  (9, 3, ("v3-nop-2^16", "v3-fibonacci-10000", "v3-nop-2^20"))):
+        for name in names:
+            program, entry, segments, tape, max_steps, case = load_case(name)
+            data, prover, counts, peak, device_work = port_prove_v2(program, entry, segments, tape, max_steps, version)
+            if name.endswith("nop-2^20"):
+                launches_at_2_20[version] = counts
+            t = prover.last_timings
+            check_pinned(name, case, data, t["num_steps"])
+            log(f"phase {phase} {name}: steps {t['num_steps']}, {len(data)} B, sha256 {sha(data)[:16]} == pinned, Accept, "
+                f"commit paths {t['data_commit_path']}/{t['advice_commit_path']}, launches {counts}, "
+                f"DATA commit (total_rows, n, n_e) {t['data_commit_shape']}, ADVICE {t['advice_commit_shape']}")
+            log(f"phase {phase} {name} device rounds: zerochecks_s={t['zerochecks_s']} lasso_s={t['lasso_s']} "
+                f"total_s={t['total_s']} advice_dev_s={t['advice_dev_s']} advice_upload_s={t['advice_upload_s']} "
+                + " ".join(f"{k}={v}" for k, v in device_work.items())
+                + f" planes == host advice columns (held after the prove) peak_device_memory_B={peak}")
+            log("  port timings: " + " ".join(f"{k}={t[k]}" for k in v2_keys if k in t)
+                + f" steps_per_s={t['num_steps'] / t['total_s']}")
+            del data, program
+            torch.cuda.empty_cache()
+    v2_counts = launches_at_2_20[2]
 
     # -- phase 7: ligero_commit_device against ligero_commit ---------------
     names = [f"w{k:02d}" for k in range(43)]
@@ -440,9 +595,24 @@ def main() -> int:
     if (port_state.root, port_state.leaf_digests, port_state.levels) != (
             ref_state.root, ref_state.leaf_digests, ref_state.levels):
         raise AssertionError("ligero_commit_device differs from the host ligero_commit")
+    # Open the state whose matrix and encoded matrix lie on the device, and
+    # the host state beside it: the same query row, columns and evaluations.
+    point = [int(x) for x in torch.randint(1, P, (18,), generator=gen, device=dev).tolist()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opened = ligero.ligero_prove_eval(port_state, point, FiatShamirTranscript())
+    evals = ligero.ligero_column_evals(port_state, point)
+    open_s = time.perf_counter() - t0
+    ref_opened = ligero.ligero_prove_eval(ref_state, point, FiatShamirTranscript())
+    if not ((opened.us[0].c == ref_opened.us[0].c).all() and (opened.columns == ref_opened.columns).all()
+            and opened.nodes == ref_opened.nodes and evals == ligero.ligero_column_evals(ref_state, point)):
+        raise AssertionError("the opening of the device state differs from the host state's")
+    if not ligero.ligero_verify_eval(F, port_state.root, 18, names, evals, point, opened, FiatShamirTranscript()):
+        raise AssertionError("ligero_verify_eval rejected the opening of the ligero_commit_device state")
     log(f"phase 7 ligero_commit_device 43 x 2^18 ({port_state.m * 43} x {port_state.n_e} encoded): "
         f"root {port_state.root.hex()[:16]} == ligero_commit, {port_s} s (host ligero_commit {ref_s} s), "
-        f"K4 launches {columns_launches}")
+        f"K4 launches {columns_launches}; opened through vecmat_device/column_evals_device in {open_s} s "
+        f"== the host opening, ligero_verify_eval accepts")
 
     # -- the contract's lines ----------------------------------------------
     def entry_of(name, key, source, replaces, launches):
@@ -450,7 +620,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"]}
+                "library_ms": r["library_ms"],
+                "launches_v4": launches_at_2_20[4][key], "launches_v3": launches_at_2_20[3][key]}
 
     sha3_source = "zigz_tpu_torch/csrc/sha3_kernels.cu"
     ligero_source = "zigz_tpu_torch/csrc/ligero_kernels.cu"
@@ -464,6 +635,7 @@ def main() -> int:
         entry_of("sha3_absorb (K5)", "absorb", ligero_source, "zigz_tpu/ops/ligero_dev.py:256",
                  v2_counts["absorb"]),
     ]}
+    log(json.dumps({"torch_ops": torch_ops}))
     log(json.dumps(kernels_line))
     log(info["nvidia_smi"])
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

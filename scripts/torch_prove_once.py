@@ -1,0 +1,53 @@
+#!/usr/bin/env python3
+"""One prove of N NOP steps on the card, its phase timings as one JSON line.
+
+    python scripts/torch_prove_once.py [--version 2] [--log2-steps 20] [--repeat 1]
+
+Run it from the root of a checkout: it imports the ``zigz_tpu_torch`` of the
+current directory, so the same script times two checkouts in turns
+(parent, change, change, parent) inside one call on one card.  The card's
+``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line comes
+first.  Needs a CUDA device."""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--version", type=int, default=2)
+    ap.add_argument("--log2-steps", type=int, default=20)
+    ap.add_argument("--repeat", type=int, default=1)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_prove_once: a CUDA device is required", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    import zigz_tpu_torch as zt
+    from zigz_tpu_torch.device import card_info
+
+    print(card_info()["nvidia_smi"], flush=True)
+    program = bytes([0x13, 0x00, 0x00, 0x00]) * (1 << args.log2_steps)
+    for _ in range(args.repeat):
+        torch.cuda.reset_peak_memory_stats()
+        prover = zt.Prover(zt.BabyBear, seed=0, device="cuda", protocol_version=args.version)
+        t0 = time.perf_counter()
+        proof = prover.prove(program, 0x1000, None, 2 << args.log2_steps, None, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timings = {k: v for k, v in prover.last_timings.items() if isinstance(v, (int, float, str))}
+        print(json.dumps({"tree": os.getcwd(), "version": args.version, "wall_s": wall,
+                          "peak_device_memory_B": torch.cuda.max_memory_allocated(),
+                          "proof_bytes": len(zt.serialization.BinarySerializer(zt.BabyBear).serialize(proof)),
+                          **timings}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,8 +4,8 @@
     JAX_PLATFORMS=cpu python scripts/torch_reference_digests.py [--only small|large|NAME ...]
 
 Proves every case below with the JAX package's HOST path (``zigz_tpu``'s
-``Prover`` with ``ZIGZ_TPU_COMMITMENTS=host``: native VM, C++ SHA3 forest,
-C++ NTT and column hashing, native zerochecks) and writes the byte length
+``Prover`` with ``ZIGZ_TPU_COMMITMENTS=host``: native VM, C++ SHA3 or
+Poseidon2 forest, C++ NTT and column hashing, native zerochecks) and writes the byte length
 and sha256 of each serialized proof to
 ``zigz_tpu_torch/testdata/proof_digests.json``.  The port reads that file
 as data (``chip_smoke.py``, tests/test_torch_selfcontained.py) and must
@@ -38,6 +38,10 @@ CASES = {
     "v1-nop-2^10": (1, {"kind": "nop", "count": 1 << 10}, 1 << 11, "small"),
     "v2-nop-2^10": (2, {"kind": "nop", "count": 1 << 10}, 1 << 11, "small"),
     "v2-fibonacci-10": (2, {**FIB, "tape": [10]}, 1 << 16, "small"),
+    "v3-nop-2^10": (3, {"kind": "nop", "count": 1 << 10}, 1 << 11, "small"),
+    "v3-fibonacci-10": (3, {**FIB, "tape": [10]}, 1 << 16, "small"),
+    "v4-nop-2^10": (4, {"kind": "nop", "count": 1 << 10}, 1 << 11, "small"),
+    "v4-fibonacci-10": (4, {**FIB, "tape": [10]}, 1 << 16, "small"),
     "v1-nop-2^16": (1, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
     "v1-nop-2^20": (1, {"kind": "nop", "count": 1 << 20}, 1 << 21, "large"),
     "v1-nop-2^22": (1, {"kind": "nop", "count": 1 << 22}, 1 << 23, "large"),
@@ -45,6 +49,11 @@ CASES = {
     "v2-nop-2^16": (2, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
     "v2-fibonacci-10000": (2, {**FIB, "tape": [10_000]}, 1 << 17, "large"),
     "v2-nop-2^20": (2, {"kind": "nop", "count": 1 << 20}, 1 << 21, "large"),
+    "v4-nop-2^16": (4, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
+    "v4-nop-2^20": (4, {"kind": "nop", "count": 1 << 20}, 1 << 21, "large"),
+    "v3-nop-2^16": (3, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
+    "v3-fibonacci-10000": (3, {**FIB, "tape": [10_000]}, 1 << 17, "large"),
+    "v3-nop-2^20": (3, {"kind": "nop", "count": 1 << 20}, 1 << 21, "large"),
 }
 
 

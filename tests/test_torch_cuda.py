@@ -25,7 +25,9 @@ from zigz_tpu_torch.commitments.ligero import ligero_commit_mixed
 from zigz_tpu_torch.core.ext4 import ext_from_ints
 from zigz_tpu_torch.core.hash import FiatShamirTranscript
 from zigz_tpu_torch.lookups import pipeline_lasso
-from zigz_tpu_torch.ops import ext4_dev, keccak, ligero_dev, witness_dev, zerocheck_dev_ext
+from zigz_tpu_torch.commitments import ligero
+from zigz_tpu_torch.core import poseidon2 as p2_host
+from zigz_tpu_torch.ops import ext4_dev, keccak, ligero_dev, poseidon2, witness_dev, zerocheck_dev_ext
 from zigz_tpu_torch.proofs.zerocheck import ZerocheckExtProver, count_zerocheck_proofs
 
 pytestmark = pytest.mark.cuda
@@ -211,3 +213,85 @@ def test_ext4_and_lasso_rounds_on_the_card_match_the_cpu(cuda):
         rounds, point, final = pipeline_lasso._sumcheck_rounds_device(BabyBear, t, evals.copy(), device)
         results.append(([[c.value for c in row] for row in rounds], [c.value for c in point], final.value, t.finalize()))
     assert results[0] == results[1]
+
+
+# -- protocols v3 and v4, the advice twins, the device Ligero state -----------
+
+@pytest.mark.parametrize("n", [1, 255, 4097, 1 << 16])
+def test_poseidon2_on_the_card_matches_the_host(cuda, n):
+    rng = np.random.default_rng(n)
+    vals = rng.integers(0, P, size=n, dtype=np.uint64)
+    vals[:2] = [0, P - 1][:n]
+    leaves = poseidon2.p2_leaves(torch.from_numpy(vals.astype(np.int32)).to(cuda))
+    assert poseidon2.limbs_to_bytes(leaves) == p2_host.np_batch_leaf_hashes(vals)
+    level = rng.integers(0, P, size=(8, 2 * n), dtype=np.uint64)
+    merged = poseidon2.p2_merge(torch.from_numpy(level.astype(np.int32)).to(cuda))
+    assert poseidon2.limbs_to_bytes(merged) == p2_host.np_batch_merge_hashes(level.T.astype("<u4").tobytes())
+
+
+@pytest.mark.parametrize("rows", [1, 13, 545])
+def test_poseidon2_column_sponge_on_the_card_matches_hash_columns(cuda, rows):
+    mat = np.random.default_rng(rows).integers(0, P, size=(rows, 64), dtype=np.uint64)
+    want = ligero._hash_columns(ligero.ntt_pow2_u32(mat, 512), "poseidon2")
+    got = poseidon2.p2_columns_stream(torch.from_numpy(mat.astype(np.int32)).to(cuda), 512)
+    assert poseidon2.limbs_to_bytes(got) == want
+
+
+@pytest.mark.parametrize("hash_mode", ["sha3", "poseidon2"])
+def test_stitched_commit_on_the_card_matches_the_cpu(cuda, hash_mode):
+    """Device-built columns placed into the device matrix, the rest uploaded."""
+    rng = np.random.default_rng(14)
+    cols = {f"c{k}": rng.integers(0, P, size=1 << v, dtype=np.uint64) for k, v in enumerate((3, 9, 12, 12, 0))}
+    dev_columns = {k: torch.from_numpy(cols[k].astype(np.int32)).to(cuda) for k in ("c0", "c2", "c4")}
+    on_card = ligero_commit_mixed(BabyBear, cols, hash_mode, device=cuda, dev_columns=dev_columns)
+    on_cpu = ligero_commit_mixed(BabyBear, cols, hash_mode, device="cpu")
+    assert on_card.levels == on_cpu.levels and on_card.commit_path == "stream-dev"
+    assert torch.equal(on_card.encoded.mat_dev.cpu(), on_cpu.encoded.mat_dev)
+
+
+@pytest.mark.parametrize("name", ["v3-fibonacci-10000", "v4-nop-2^16"])
+def test_v3_v4_prove_on_the_card_matches_zigz_tpu(cuda, name):
+    """Pinned digest, Accept, the advice planes built on the card, and the
+    launches of the path: v3 runs no SHA3 kernel, v4 no forest kernel."""
+    case = PINNED[name]
+    if case["program"]["kind"] == "nop":
+        program, entry, segments, tape = bytes([0x13, 0, 0, 0]) * case["program"]["count"], 0x1000, None, None
+    else:
+        program = (FIXTURES / case["program"]["name"]).read_bytes()
+        loaded = elf.load(program)
+        entry, segments, tape = loaded.entry_pc, loaded.segments, case["program"]["tape"]
+    ser = serialization.BinarySerializer(BabyBear)
+    keccak.LAUNCHES.update(leaves=0, merge=0)
+    ligero_dev.LAUNCHES.update(columns=0, absorb=0)
+    poseidon2.PERMUTATIONS["count"] = 0
+    prover = Prover(BabyBear, seed=0, protocol_version=case["protocol_version"])  # the default device
+    assert prover.device.type == "cuda"
+    proof = prover.prove(program, entry, None, case["max_steps"], segments, tape)
+    data = ser.serialize(proof)
+    assert (proof.metadata.num_steps, len(data), hashlib.sha256(data).hexdigest()) == (
+        case["num_steps"], case["bytes"], case["sha256"])
+    assert Verifier(BabyBear).verify(ser.deserialize(data), program) == "Accept"
+    assert prover.last_timings["advice_dev_cols"] == 148
+    assert prover.last_timings["data_commit_path"] == prover.last_timings["advice_commit_path"] == "stream-dev"
+    assert keccak.LAUNCHES == {"leaves": 0, "merge": 0}
+    if case["protocol_version"] == 3:
+        assert ligero_dev.LAUNCHES["absorb"] == 0 and poseidon2.PERMUTATIONS["count"] > 0
+    else:
+        assert ligero_dev.LAUNCHES["absorb"] > 0 and poseidon2.PERMUTATIONS["count"] == 0
+        assert proof.witness_commitments == []
+
+
+def test_device_ligero_state_opens_on_the_card(cuda):
+    rng = np.random.default_rng(15)
+    names = [f"w{k:02d}" for k in range(5)]
+    rows = rng.integers(0, P, size=(5, 1 << 10), dtype=np.uint64)
+    state = ligero_dev.ligero_commit_device(BabyBear, names, torch.from_numpy(rows.astype(np.int32)).to(cuda))
+    host = ligero.ligero_commit(BabyBear, {n: rows[k] for k, n in enumerate(names)}, "sha3")
+    assert state.matrix.is_cuda and state.encoded.is_cuda and state.levels == host.levels
+    point = [int(x) for x in rng.integers(1, P, size=10)]
+    opened = ligero.ligero_prove_eval(state, point, FiatShamirTranscript())
+    ref = ligero.ligero_prove_eval(host, point, FiatShamirTranscript())
+    assert np.array_equal(opened.us[0].c, ref.us[0].c) and np.array_equal(opened.columns, ref.columns)
+    evals = ligero.ligero_column_evals(state, point)
+    assert evals == ligero.ligero_column_evals(host, point)
+    assert ligero.ligero_verify_eval(BabyBear, state.root, 10, names, evals, point, opened, FiatShamirTranscript())

@@ -229,7 +229,7 @@ def test_streamed_state_offers_no_device_column():
         ref_col = port.device_column(name)
         assert ref_col.mat is port.encoded.mat_dev and ref_col.length == len(cols[name])
         assert ref_col.resolve().tolist() == cols[name].tolist()
-    # a commitment whose matrix is host numpy offers none
+    # a uniform commitment has no mixed layout and offers none
     rows = _words(np.stack([_canonical(1 << 6, seed=k) for k in range(2)]))
     assert ligero_dev.ligero_commit_device(F, ["a", "b"], rows).device_column("a") is None
 
@@ -250,13 +250,68 @@ def test_ligero_commit_device_matches_jax(v, B):
     assert port.leaf_digests == host.leaf_digests
     assert port.levels == host.levels
     assert (port.cn, port.m, port.n, port.n_e, port.names) == (host.cn, host.m, host.n, host.n_e, host.names)
-    assert port.matrix.dtype == np.uint64 and np.array_equal(port.matrix, host.matrix)
-    assert port.encoded.dtype == np.uint32 and np.array_equal(port.encoded, host.encoded)
+    # the matrix and the encoded matrix stay on the device, as in zigz_tpu
+    assert port.matrix.dtype == torch.int32 and np.array_equal(port.matrix.numpy().astype(np.uint64), host.matrix)
+    assert port.encoded.dtype == torch.int32 and np.array_equal(port.encoded.numpy().view(np.uint32), host.encoded)
 
+    # Opened through vecmat_device / column_evals_device by the port's own
+    # prove_eval: the same rows, columns, nodes and transcript as zigz_tpu's
+    # host opening, and zigz_tpu's verifier accepts it.
     rs = [int(x) for x in np.random.default_rng(v).integers(1, P, size=v)]
-    th, tp = FiatShamirTranscript(), FiatShamirTranscript()
+    th, tp = FiatShamirTranscript(), PortTranscript()
     ph = ref.ligero_prove_eval(host, rs, th)
-    pp = ref.ligero_prove_eval(port, rs, tp)
+    pp = port_ligero.ligero_prove_eval(port, rs, tp)
+    assert all(np.array_equal(a.c, b.c) for a, b in zip(ph.us, pp.us))
     assert np.array_equal(ph.columns, pp.columns) and ph.nodes == pp.nodes
     assert th.challenge_value(P) == tp.challenge_value(P)
-    assert ref.ligero_column_evals(port, rs) == ref.ligero_column_evals(host, rs)
+    evals = port_ligero.ligero_column_evals(port, rs)
+    assert evals == ref.ligero_column_evals(host, rs)
+    assert port_ligero.ligero_verify_eval(F, port.root, v, names, evals, rs, pp, PortTranscript())
+    evals[names[0]] = (evals[names[0]] + 1) % P
+    assert not port_ligero.ligero_verify_eval(F, port.root, v, names, evals, rs, pp, PortTranscript())
+
+
+@pytest.mark.parametrize("rows, n", [(1, 1), (5, 8), (86, 64)])
+def test_vecmat_device_matches_host_vecmat(rows, n):
+    mat = _canonical((rows, n), seed=rows + n)
+    a = _canonical(rows, seed=rows * n + 1)
+    got = ligero_dev.vecmat_device(a, _words(mat))
+    assert got.dtype == np.uint64
+    assert np.array_equal(got, ref._vecmat(a, mat)) and np.array_equal(got, port_ligero._vecmat(a, mat))
+    assert np.array_equal(port_ligero._vecmat(a, _words(mat)), got)  # the dispatch on the matrix type
+
+
+@pytest.mark.parametrize("v, B", [(6, 3), (4, 43)])
+def test_column_evals_device_matches_host(v, B):
+    """Base and extension points, against the host ``ligero_column_evals`` of
+    the same columns (zigz_tpu's and the port's)."""
+    cols = {f"c{k:02d}": _canonical(1 << v, seed=7 * v + k) for k in range(B)}
+    names = sorted(cols)
+    host = ref.ligero_commit(F, cols, "sha3")
+    port = ligero_dev.ligero_commit_device(F, names, _words(np.stack([cols[n] for n in names])))
+    rng = np.random.default_rng(v * B)
+    rs = [int(x) for x in rng.integers(1, P, size=v)]
+    a, b = port_ligero._row_col_weights(rs, port.cn)
+    assert ligero_dev.column_evals_device(port, a, b) == ref.ligero_column_evals(host, rs)
+    ext_ints = [[int(x) for x in rng.integers(0, P, size=4)] for _ in range(v)]
+    got = port_ligero.ligero_column_evals(port, [PortExt4.from_ints(c) for c in ext_ints])
+    want = ref.ligero_column_evals(host, [Ext4.from_ints(c) for c in ext_ints])
+    assert {k: x.to_ints() for k, x in got.items()} == {k: x.to_ints() for k, x in want.items()}
+
+
+def test_ligero_commit_mixed_poseidon2_matches_jax():
+    """zigz_tpu commits in Poseidon2 mode on its host path; the port on the
+    same device encode stream with the Poseidon2 column sponge."""
+    cols = _mixed_columns(5)
+    host = ref.ligero_commit_mixed(F, cols, "poseidon2")
+    port = ligero_commit_mixed(F, cols, "poseidon2", device="cpu")
+    assert port.commit_path == "stream-dev" and port.hash_mode == "poseidon2"
+    assert (port.root, port.leaf_digests, port.levels) == (host.root, host.leaf_digests, host.levels)
+    claim = _mixed_claim(host, seed=6)
+    th, tp = FiatShamirTranscript(), FiatShamirTranscript()
+    ph = ref.ligero_prove_mixed(host, [claim], th)
+    pp = ref.ligero_prove_mixed(port, [claim], tp)
+    assert np.array_equal(ph.columns, pp.columns) and ph.nodes == pp.nodes
+    assert th.challenge_value(P) == tp.challenge_value(P)
+    with pytest.raises(ValueError, match="unknown hash mode"):
+        ligero_commit_mixed(F, cols, "blake3", device="cpu")

@@ -9,6 +9,9 @@
 * The zerocheck and Lasso dispatch with a device never goes back to the
   host provers: an absent CUDA device raises, a combiner outside the traced
   algebra raises ``TraceError``, and there is no width gate.
+* A device advice twin or the Poseidon2 column sponge that fails makes
+  the commit and the prove raise; both commits of a v2, v3 and v4 prove take
+  the ``"stream-dev"`` path.
 * The port reads no ``ZIGZ_TPU_*`` environment variable.
 * ``chip_smoke.py`` exits non-zero and prints no result without a card.
 """
@@ -37,6 +40,16 @@ from zigz_tpu_torch.prover.unified import prove_unified
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several pytest workers on a few cores: torch's own
+    intra-op thread pool would oversubscribe them (tens of times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
@@ -51,8 +64,14 @@ def test_prover_on_cuda_raises_without_a_card(no_cuda):
 
 
 def test_device_is_required_and_checked(no_cuda):
+    """The entry points default to the card and raise where there is none;
+    below them the device is a required argument."""
+    with pytest.raises(RuntimeError, match="cuda"):
+        Prover(F)  # the default device is the card
     with pytest.raises(TypeError):
-        Prover(F)  # no default device
+        prove_unified(F, FiatShamirTranscript(), [])
+    with pytest.raises(TypeError):
+        ligero_commit_mixed(F, {"a": np.arange(16, dtype=np.uint64)})
     with pytest.raises(ValueError):
         resolve_device(None)
     with pytest.raises(ValueError):
@@ -201,6 +220,52 @@ def test_port_reads_no_zigz_tpu_variable(monkeypatch):
     assert zerocheck_dev_ext.DEVICE_PROVES["count"] == 1
     sources = sorted((ROOT / "zigz_tpu_torch").rglob("*.py"))
     assert sources and not [p.name for p in sources if "ZIGZ_TPU_" in p.read_text()]
+
+
+_NOPS = bytes([0x13, 0, 0, 0] * 16)
+
+
+@pytest.mark.parametrize("version", [2, 3, 4])
+def test_both_commits_take_the_device_path(version):
+    """v2 and v4 column-hash with the K5 stream, v3 with the Poseidon2
+    sponge over the same device encode stream; no host commit path exists."""
+    prover = Prover(F, seed=0, device="cpu", protocol_version=version)
+    proof = prover.prove(_NOPS, 0x1000, None, 64, None, None)
+    t = prover.last_timings
+    assert t["data_commit_path"] == t["advice_commit_path"] == "stream-dev"
+    assert t["advice_dev_cols"] == 148 and t["advice_dev_s"] > 0
+    assert proof.metadata.version == version
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            Prover(F, protocol_version=version)  # the default device is the card
+
+
+@pytest.mark.parametrize("argument", ["CoreV2Argument", "RegcheckArgument", "BytecodeArgument"])
+def test_a_failing_device_advice_twin_fails_the_prove(argument, monkeypatch):
+    from zigz_tpu_torch.constraints import bytecode, core_arg, regcheck
+
+    def boom(self, data_state):
+        raise RuntimeError(f"forced failure in {argument}")
+
+    owner = {"CoreV2Argument": core_arg, "RegcheckArgument": regcheck, "BytecodeArgument": bytecode}[argument]
+    monkeypatch.setattr(getattr(owner, argument), "device_advice", boom)
+    with pytest.raises(RuntimeError, match=f"forced failure in {argument}"):
+        Prover(F, seed=0, device="cpu", protocol_version=2).prove(_NOPS, 0x1000, None, 64, None, None)
+
+
+def test_a_failing_poseidon2_sponge_fails_the_commit_and_the_prove(monkeypatch):
+    from zigz_tpu_torch.ops import poseidon2
+
+    def boom(mat, n_e):
+        raise RuntimeError("forced failure in the Poseidon2 sponge")
+
+    monkeypatch.setattr(poseidon2, "p2_columns_stream", boom)
+    cols = {"a": np.arange(1 << 6, dtype=np.uint64)}
+    with pytest.raises(RuntimeError, match="forced failure in the Poseidon2 sponge"):
+        ligero_commit_mixed(F, cols, "poseidon2", device="cpu")
+    assert ligero_commit_mixed(F, cols, "sha3", device="cpu").commit_path == "stream-dev"
+    with pytest.raises(RuntimeError, match="forced failure in the Poseidon2 sponge"):
+        Prover(F, seed=0, device="cpu", protocol_version=3).prove(_NOPS, 0x1000, None, 64, None, None)
 
 
 def test_card_info_reports_without_a_card(no_cuda):

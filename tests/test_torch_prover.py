@@ -1,10 +1,11 @@
-"""The port's v1 and v2 proof bytes == the golden fixtures == zigz_tpu's proofs
+"""The port's v1 to v4 proof bytes == the golden fixtures == zigz_tpu's proofs
 == the pinned digests of zigz_tpu_torch/testdata/proof_digests.json.
 
 Proof bytes are compared whole: tolerance zero.  The port and zigz_tpu are
 two packages with classes of their own, so proofs cross between them as
 serialized bytes."""
 
+import copy
 import hashlib
 import json
 import os
@@ -24,6 +25,9 @@ from zigz_tpu.verifier.verifier import Verifier
 import zigz_tpu_torch as zt
 from zigz_tpu_torch import cli
 from zigz_tpu_torch.lookups import pipeline_lasso
+from zigz_tpu_torch.commitments import ligero as port_ligero
+from zigz_tpu_torch.constraints.witness import WITNESS_POLY_NAMES
+from zigz_tpu_torch.verifier.verifier import ProgramHashMismatch
 from zigz_tpu_torch.ops import keccak, ligero_dev, zerocheck_dev_ext
 from zigz_tpu_torch.proofs.zerocheck import count_zerocheck_proofs
 from zigz_tpu_torch.prover.prover import Prover
@@ -98,9 +102,16 @@ def test_port_has_no_size_gate():
 
 
 def test_protocols_beyond_v2_are_not_ported():
+    """v3 and v4 are ported; a version beyond them, or another field under
+    them, is refused as zigz_tpu refuses it."""
+    from zigz_tpu_torch.core.field import Goldilocks
+
     for version in (3, 4):
-        with pytest.raises(NotImplementedError, match="slice"):
-            Prover(F, device="cpu", protocol_version=version)
+        assert Prover(F, device="cpu", protocol_version=version).protocol_version == version
+        with pytest.raises(ValueError, match="BabyBear"):
+            Prover(Goldilocks, device="cpu", protocol_version=version)
+    with pytest.raises(ValueError, match="protocol_version"):
+        Prover(F, device="cpu", protocol_version=5)
 
 
 def test_cli_prove_writes_the_fixture_bytes(tmp_path, capsys):
@@ -111,10 +122,11 @@ def test_cli_prove_writes_the_fixture_bytes(tmp_path, capsys):
     assert cli.main(["verify", str(out), str(program)]) == 0
     assert cli.main(["execute", str(program)]) == 0
     assert "execute: 5 steps" in capsys.readouterr().out
-    assert cli.main(["prove", str(program)]) == 1  # no --device
-    for flag in ("--v3", "--v4", "--supervise"):
-        assert cli.main(["prove", str(program), "--device", "cpu", flag]) == 1
-        assert "not yet ported" in capsys.readouterr().err
+    if not torch.cuda.is_available():  # the default device is the card: an error where there is none
+        assert cli.main(["prove", str(program)]) == 1
+        assert "cuda" in capsys.readouterr().err
+    assert cli.main(["prove", str(program), "--device", "cpu", "--supervise"]) == 1
+    assert "not yet ported" in capsys.readouterr().err
 
 
 def test_cli_prove_v2_writes_zigz_tpu_bytes(tmp_path, capsys, monkeypatch):
@@ -167,9 +179,15 @@ def test_cpu_proves_launch_no_kernel():
 # ``host_tail``: the width at or below which the zerocheck and Lasso rounds
 # finish on the host; 8 sends all but the last rounds to the torch device.
 V2_CASES = {
-    "nop 2^10": dict(program=None, tape=None, pinned="v2-nop-2^10", host_tail=8),
-    "fibonacci [10]": dict(program="fibonacci_program.bin", tape=[10], pinned="v2-fibonacci-10",
+    "nop 2^10": dict(version=2, program=None, tape=None, pinned="v2-nop-2^10", host_tail=8),
+    "fibonacci [10]": dict(version=2, program="fibonacci_program.bin", tape=[10], pinned="v2-fibonacci-10",
                            host_tail=None),
+    "v3 nop 2^10": dict(version=3, program=None, tape=None, pinned="v3-nop-2^10", host_tail=8),
+    "v3 fibonacci [10]": dict(version=3, program="fibonacci_program.bin", tape=[10],
+                              pinned="v3-fibonacci-10", host_tail=None),
+    "v4 nop 2^10": dict(version=4, program=None, tape=None, pinned="v4-nop-2^10", host_tail=8),
+    "v4 fibonacci [10]": dict(version=4, program="fibonacci_program.bin", tape=[10],
+                              pinned="v4-fibonacci-10", host_tail=None),
 }
 
 
@@ -185,18 +203,20 @@ def _v2_inputs(case):
 
 @pytest.mark.parametrize("case", sorted(V2_CASES))
 def test_v2_bytes_match_zigz_tpu(case, monkeypatch):
-    """Every zerocheck on GenericDeviceZerocheckExt and the Lasso rounds on
-    the torch device, against zigz_tpu's host path (native zerochecks, host
-    NTT, host column hashing); both verifiers accept both proofs."""
+    """Protocols v2, v3 and v4: every zerocheck on GenericDeviceZerocheckExt,
+    the advice planes rebuilt on the torch device and the Lasso rounds there,
+    against zigz_tpu's host path (native zerochecks, host NTT, host column
+    hashing); both verifiers accept both proofs."""
     program, entry, segments, tape = _v2_inputs(case)
-    host_tail = V2_CASES[case]["host_tail"]
+    host_tail, version = V2_CASES[case]["host_tail"], V2_CASES[case]["version"]
     if host_tail is not None:
         monkeypatch.setattr(zerocheck_dev_ext, "HOST_TAIL_EXT", host_tail)
         monkeypatch.setattr(pipeline_lasso, "HOST_TAIL", host_tail)
-    port = Prover(F, seed=0, device="cpu", protocol_version=2)
+    port = Prover(F, seed=0, device="cpu", protocol_version=version)
     before = dict(ligero_dev.LAUNCHES), dict(keccak.LAUNCHES)
     zerocheck_dev_ext.reset_counters()
     pipeline_lasso.DEVICE_ROUNDS["count"] = 0
+    port_ligero.STITCHED.update(dev_columns=0, host_rows=0)
     proof = port.prove(program, entry, None, 1 << 16, segments, tape)
     data = zt.serialization.BinarySerializer(zt.BabyBear).serialize(proof)
     assert (dict(ligero_dev.LAUNCHES), dict(keccak.LAUNCHES)) == before  # plain versions on the CPU
@@ -206,12 +226,15 @@ def test_v2_bytes_match_zigz_tpu(case, monkeypatch):
     assert (pipeline_lasso.DEVICE_ROUNDS["count"] > 0) == (host_tail is not None)
     t = port.last_timings
     assert t["data_commit_path"] == t["advice_commit_path"] == "stream-dev"
-    assert t["advice_dev_cols"] == 0
-    assert {"data_commit_s", "advice_build_s", "advice_commit_s", "zerochecks_s", "batch_eval_s",
-            "open_s", "unified_s", "lasso_s", "forest_s", "data_upload_s", "data_stream_s"} <= set(t)
+    assert t["advice_dev_cols"] == port_ligero.STITCHED["dev_columns"] == 148  # BENCH_r05 advice_dev_cols
+    assert port_ligero.STITCHED["host_rows"] > 0  # h_prog and the query-link advice stay host-built
+    assert {"data_commit_s", "advice_build_s", "advice_dev_s", "advice_commit_s", "zerochecks_s", "batch_eval_s",
+            "open_s", "unified_s", "lasso_s", "data_upload_s", "data_stream_s"} <= set(t)
+    # v4 has no forest: the witness MLEs are columns of the DATA commitment
+    assert ("forest_s" in t) == (version < 4) == bool(proof.witness_commitments)
 
     monkeypatch.setenv("ZIGZ_TPU_COMMITMENTS", "host")
-    ref = ReferenceProver(F, seed=0, protocol_version=2)
+    ref = ReferenceProver(F, seed=0, protocol_version=version)
     ref_data = BinarySerializer(F).serialize(ref.prove(program, entry, None, 1 << 16, segments, tape))
     assert ref.last_timings["data_commit_path"] == "host"
     assert data == ref_data
@@ -219,7 +242,7 @@ def test_v2_bytes_match_zigz_tpu(case, monkeypatch):
     assert (len(ref_data), hashlib.sha256(ref_data).hexdigest()) == (pinned["bytes"], pinned["sha256"])
     # The port's proof under zigz_tpu's verifier, zigz_tpu's under the port's.
     restored = BinarySerializer(F).deserialize(data)
-    assert restored.metadata.version == 2
+    assert restored.metadata.version == version
     assert Verifier(F).verify(restored, program) == VerificationResult.Accept
     ported = zt.serialization.BinarySerializer(zt.BabyBear).deserialize(ref_data)
     assert zt.Verifier(zt.BabyBear).verify(ported, program) == "Accept"
@@ -270,7 +293,7 @@ if zt.elf.is_elf(program):
     loaded = zt.elf.load(program)
     entry, segments = loaded.entry_pc, loaded.segments
 ser = zt.serialization.BinarySerializer(zt.BabyBear)
-port = zt.Prover(zt.BabyBear, seed=0, device="cpu", protocol_version=2)
+port = zt.Prover(zt.BabyBear, seed=0, device="cpu", protocol_version={version!r})
 proof = port.prove(program, entry, None, 1 << 16, segments, {tape!r})
 data = ser.serialize(proof)
 assert port.last_timings["data_commit_path"] == "stream-dev", port.last_timings
@@ -288,14 +311,15 @@ print("NO_JAX_V2_OK", len(seen))
 
 @pytest.mark.parametrize("case", sorted(V2_CASES))
 def test_v2_proves_with_jax_unimportable(case):
-    """With JAX and the JAX package blocked from import, the port proves v2
-    with every zerocheck on the torch device and fed from the resident
+    """With JAX and the JAX package blocked from import, the port proves v2,
+    v3 and v4 with every zerocheck on the torch device and fed from the resident
     commit matrices, reproduces the pinned digest and verifies."""
     spec = V2_CASES[case]
     code = _NO_JAX_V2.format(
         root=str(ROOT),
         program=str(FIXTURES / spec["program"]) if spec["program"] else "",
         tape=spec["tape"],
+        version=spec["version"],
         digests=str(ROOT / "zigz_tpu_torch" / "testdata" / "proof_digests.json"),
         pinned=spec["pinned"],
     )
@@ -304,3 +328,90 @@ def test_v2_proves_with_jax_unimportable(case):
                          timeout=600, env=env)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "NO_JAX_V2_OK" in res.stdout
+
+
+# -- protocols v3 and v4: what the port's verifier rejects -------------------
+# (the tamper cases of tests/test_v3_protocol.py and tests/test_v4_protocol.py)
+
+def _adds_program(n_adds=60):
+    body = bytes([0x93, 0x00, 0x30, 0x00, 0x13, 0x01, 0x40, 0x00])
+    body += bytes([0xB3, 0x81, 0x20, 0x00]) * n_adds
+    return body + bytes([0x73, 0x00, 0x10, 0x00])
+
+
+@pytest.fixture(scope="module")
+def port_proofs():
+    program = _adds_program()
+    return program, {
+        version: zt.Prover(zt.BabyBear, seed=0, device="cpu", protocol_version=version).prove(
+            program, 0x1000, None, 1 << 10, None, None)
+        for version in (2, 3, 4)
+    }
+
+
+def _port_verify(proof, program):
+    return zt.Verifier(zt.BabyBear).verify(proof, program)
+
+
+@pytest.mark.parametrize("version", [3, 4])
+def test_v3_v4_accept_and_roundtrip(port_proofs, version):
+    program, proofs = port_proofs
+    proof = proofs[version]
+    assert proof.metadata.version == version
+    assert bool(proof.witness_commitments) == (version == 3)
+    assert _port_verify(proof, program) == "Accept"
+    ser = zt.serialization.BinarySerializer(zt.BabyBear)
+    blob = ser.serialize(proof)
+    restored = ser.deserialize(blob)
+    assert restored.metadata.version == version
+    assert _port_verify(restored, program) == "Accept"
+    assert ser.serialize(restored) == blob
+
+
+def test_v3_rejects_sha3_commitments(port_proofs):
+    """A v2 proof relabeled as v3 must fail (different hasher)."""
+    program, proofs = port_proofs
+    relabeled = copy.deepcopy(proofs[2])
+    relabeled.metadata.version = 3
+    assert _port_verify(relabeled, program) != "Accept"
+
+
+def test_v3_rejects_tampered_opening(port_proofs):
+    program, proofs = port_proofs
+    t = copy.deepcopy(proofs[3])
+    t.witness_commitments[7].proof.merkle_proof.path.siblings[0] = bytes(32)
+    assert _port_verify(t, program) == "RejectInvalidCommitment"
+
+
+def test_v4_all_43_columns_bound(port_proofs):
+    _, proofs = port_proofs
+    assert set(proofs[4].v2.witness_evals) == set(WITNESS_POLY_NAMES)
+    assert len(proofs[4].v2.unified.data_root) == 32
+
+
+@pytest.mark.parametrize("column", ["x5", "pc", "mem_is_read"])
+def test_v4_tampered_witness_eval_rejected(port_proofs, column):
+    """Forging a witness column eval is rejected by the Ligero binding (x5:
+    no other argument opens it) or by the cross-commitment consistency of
+    pc / mem_is_read with the core zerocheck columns."""
+    program, proofs = port_proofs
+    t = copy.deepcopy(proofs[4])
+    t.v2.witness_evals[column] = (t.v2.witness_evals[column] + 1) % F.MODULUS
+    assert _port_verify(t, program) != "Accept"
+
+
+@pytest.mark.parametrize("what", ["root", "section"])
+def test_v4_tampered_commitment_rejected(port_proofs, what):
+    program, proofs = port_proofs
+    t = copy.deepcopy(proofs[4])
+    if what == "root":
+        t.v2.unified.data_root = bytes(32)
+    else:
+        t.v2.witness_evals = None
+    assert _port_verify(t, program) != "Accept"
+
+
+def test_v4_wrong_program_rejected(port_proofs):
+    _, proofs = port_proofs
+    with pytest.raises(ProgramHashMismatch):
+        _port_verify(proofs[4], _adds_program(n_adds=61))

@@ -34,6 +34,8 @@ def test_sources_are_found():
     assert len(SOURCES) > 40
     assert {"zigz_tpu_torch/prover/prover.py", "zigz_tpu_torch/verifier/verifier.py", "zigz_tpu_torch/cli.py",
             "zigz_tpu_torch/runtime/native_vm.py", "zigz_tpu_torch/ops/zerocheck_dev_ext.py",
+            "zigz_tpu_torch/ops/advice_dev.py", "zigz_tpu_torch/ops/poseidon2.py",
+            "zigz_tpu_torch/core/poseidon2.py", "zigz_tpu_torch/core/poseidon2_params.py",
             "chip_smoke.py"} <= names
     assert not (PORT / "_jaxfree.py").exists()
 

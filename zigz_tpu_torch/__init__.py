@@ -5,14 +5,16 @@ reference: it imports ``torch`` and numpy, never JAX and nothing of
 ``zigz_tpu``.  It carries its own host layers (the field and transcript,
 the native VM and C++ runtime, the v2 arguments, the proof format,
 serialization, the verifier, the CLI) under the JAX package's sub-package
-and module names, and owns the device work of the v1 and v2 proves: the
-witness build, the SHA3-256 Merkle forest and the Ligero column sponges
-(hand-written CUDA kernels, csrc/), the Reed-Solomon row encode, the
-batched MLE evaluation, the extension-field zerochecks and the Lasso
-sumcheck rounds.
+and module names, and owns the device work of the proves of protocols v1
+to v4: the witness build, the SHA3-256 Merkle forest and the Ligero column
+sponges (hand-written CUDA kernels, csrc/), the Poseidon2 forest and column
+sponge of v3, the Reed-Solomon row encode, the batched MLE evaluation, the
+device advice columns, the extension-field zerochecks and the Lasso
+sumcheck rounds.  ``Prover`` runs on the card unless it is given
+``device="cpu"``, which runs the kernels' plain PyTorch versions.
 
     import zigz_tpu_torch as zt
-    proof = zt.Prover(zt.BabyBear, device="cuda").prove(program, 0x1000, None, 1 << 20, None, None)
+    proof = zt.Prover(zt.BabyBear, protocol_version=2).prove(program, 0x1000, None, 1 << 20, None, None)
     data = zt.serialization.BinarySerializer(zt.BabyBear).serialize(proof)
     assert zt.Verifier(zt.BabyBear).verify(proof, program) == "Accept"
 """

@@ -5,14 +5,16 @@ subcommands, flags and defaults (entry 0x1000, max-steps 2^20); ``prove``
 takes the device its work runs on:
 
     python -m zigz_tpu_torch.cli execute <program.bin|program.elf> [--entry 0x1000] [--max-steps N]
-    python -m zigz_tpu_torch.cli prove   <program> --device cuda|cpu [--entry 0x1000] [--max-steps N]
-                                         [--out proof.bin] [--input v1,v2,...] [--v2]
+    python -m zigz_tpu_torch.cli prove   <program> [--device cuda|cpu] [--entry 0x1000] [--max-steps N]
+                                         [--out proof.bin] [--input v1,v2,...] [--v2|--v3|--v4]
     python -m zigz_tpu_torch.cli verify  <proof.bin> <program>
     python -m zigz_tpu_torch.cli new     <name>
     python -m zigz_tpu_torch.cli build   [path]
 
-``--v2`` selects protocol v2.  ``--v3``, ``--v4`` and ``--supervise`` are
-not ported yet and exit non-zero.
+``--device`` defaults to ``cuda`` (the card; an error where there is none),
+``--device cpu`` runs the kernels' plain versions.  ``--v2``, ``--v3`` and
+``--v4`` select the protocol version.  ``--supervise`` is not ported yet and
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -38,10 +40,12 @@ USAGE = """zigz-tpu-torch — the zigz_tpu zkVM on PyTorch and CUDA (sumcheck + 
   python -m zigz_tpu_torch.cli execute <program.bin|program.elf> [--entry 0x1000] [--max-steps N]
     Run VM only (no proof). ELF: entry from file; raw .bin: use --entry.
 
-  python -m zigz_tpu_torch.cli prove <program.bin|program.elf> --device cuda|cpu
-      [--entry 0x1000] [--max-steps N] [--out proof.bin] [--input v1,v2,...] [--v2]
-    Generate proof on the device. ELF: entry and segments from file.
-    --v2 real constraint zerocheck, lookups and memory checks.
+  python -m zigz_tpu_torch.cli prove <program.bin|program.elf> [--device cuda|cpu]
+      [--entry 0x1000] [--max-steps N] [--out proof.bin] [--input v1,v2,...] [--v2|--v3|--v4]
+    Generate proof on the device (default cuda). ELF: entry and segments from file.
+    --v2 real constraint zerocheck, lookups and memory checks;
+    --v3 adds Poseidon2 commitments;
+    --v4 unified Ligero witness PCS (no per-column Merkle forest).
 
   python -m zigz_tpu_torch.cli verify <proof.bin> <program.bin|program.elf>
     Verify proof. Program must match the one used to prove.
@@ -54,7 +58,7 @@ USAGE = """zigz-tpu-torch — the zigz_tpu zkVM on PyTorch and CUDA (sumcheck + 
     Output: <path>/out/program (ELF for execute/prove).
 """
 
-_NOT_PORTED = ("--v3", "--v4", "--supervise")
+_NOT_PORTED = ("--supervise",)
 
 
 def _parse_u64(args, flag, default):
@@ -116,13 +120,9 @@ def cmd_prove(args) -> int:
         return 1
     for flag in _NOT_PORTED:
         if flag in args:
-            print(f"error: {flag} is not yet ported to zigz_tpu_torch (protocols v1 and v2 only)",
-                  file=sys.stderr)
+            print(f"error: {flag} is not yet ported to zigz_tpu_torch", file=sys.stderr)
             return 1
-    device = _parse_str(args, "--device")
-    if device is None:
-        print("error: prove requires --device cuda|cpu", file=sys.stderr)
-        return 1
+    device = _parse_str(args, "--device") or "cuda"
     program, elf_entry, segments = _load_program(args[0])
     entry_pc = elf_entry if elf_entry is not None else _parse_u64(args, "--entry", DEFAULT_ENTRY)
     max_steps = _parse_u64(args, "--max-steps", DEFAULT_MAX_STEPS)
@@ -130,7 +130,10 @@ def cmd_prove(args) -> int:
     input_str = _parse_str(args, "--input")
     input_tape = [int(v) for v in input_str.split(",")] if input_str else None
 
-    protocol_version = 2 if "--v2" in args else 1
+    protocol_version = 1
+    for flag, pv in (("--v2", 2), ("--v3", 3), ("--v4", 4)):
+        if flag in args:
+            protocol_version = pv
     prover = Prover(F, seed=0, device=device, protocol_version=protocol_version)
     t0 = time.perf_counter()
     proof = prover.prove(program, entry_pc, None, max_steps, segments, input_tape)
@@ -170,7 +173,7 @@ _GUEST_TEMPLATE = '''"""Guest program for the zigz_tpu_torch zkVM.
 
 Build: python -m zigz_tpu_torch.cli build      (writes out/program as a RISC-V ELF)
 Run:   python -m zigz_tpu_torch.cli execute out/program
-Prove: python -m zigz_tpu_torch.cli prove out/program --device cuda
+Prove: python -m zigz_tpu_torch.cli prove out/program
 """
 
 from zigz_tpu_torch.guest.asm import Assembler

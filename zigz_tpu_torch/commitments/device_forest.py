@@ -15,6 +15,11 @@ _recompute_siblings).  None of that is ported here: every level stays on
 the device, which at 2^22 steps is 43 * (2^23 - 1) * 32 bytes, about
 11.5 GB.  Roots, openings and evaluations are byte-identical to
 SimpleMerkleTree and to the JAX forest (tests/test_torch_forest.py).
+
+``hash_mode="poseidon2"`` (protocol v3) builds the same trees with
+ops/poseidon2.py: level k is then an (8, B, N >> k) int32 tensor of digest
+limbs, limb-major, whose (8, B * N >> k) view is ``p2_merge``'s input with
+the same adjacent pairing; roots and path siblings are 32-byte limb blobs.
 """
 
 from __future__ import annotations
@@ -27,17 +32,18 @@ import torch
 from .merkle import MerklePath, OpeningProof
 
 from ..ops import babybear as bb
-from ..ops import keccak, mle
+from ..ops import keccak, mle, poseidon2
 
 __all__ = ["DeviceMerkleForest"]
 
 
 class DeviceMerkleForest:
-    def __init__(self, F, lo: torch.Tensor):
+    def __init__(self, F, lo: torch.Tensor, hash_mode: str = "sha3"):
         """``lo``: (B, N) int32 canonical witness on the device, N = 2^height.
 
         Builds every level: one K1 launch for the B * N leaves, then one K2
-        launch per level."""
+        launch per level (``"sha3"``), or ``p2_leaves`` and one ``p2_merge``
+        per level (``"poseidon2"``)."""
         if F.MODULUS != bb.P:
             raise ValueError(f"the port's field is BabyBear (p = {bb.P}), not {F.MODULUS}")
         if lo.dtype != torch.int32 or lo.dim() != 2:
@@ -49,6 +55,17 @@ class DeviceMerkleForest:
         self.lo = lo
         self.B, self.N = B, N
         self.height = N.bit_length() - 1
+        self.hash_mode = hash_mode
+        if hash_mode == "poseidon2":
+            level = poseidon2.p2_leaves(lo.reshape(-1))  # (8, B * N)
+            self.levels = [level.view(8, B, N)]
+            for k in range(self.height):
+                level = poseidon2.p2_merge(level)
+                self.levels.append(level.view(8, B, N >> (k + 1)))
+            self._root_bytes = poseidon2.limbs_to_bytes(level)
+            return
+        if hash_mode != "sha3":
+            raise ValueError(f"unknown hash mode {hash_mode!r}")
 
         level = keccak.sha3_leaves(lo.reshape(-1).to(torch.int64))  # (B * N, 4)
         self.levels = [level.view(B, N, 4)]
@@ -81,12 +98,19 @@ class DeviceMerkleForest:
         shifts = np.arange(height, dtype=np.int64)[:, None]
         sibling = torch.from_numpy((idx[None, :] >> shifts) ^ 1).to(device)  # (height, B)
         rows = torch.arange(B, device=device)
-        parts = [self.levels[k][rows, sibling[k]].reshape(-1) for k in range(height)]
+        if self.hash_mode == "poseidon2":
+            # (8, B) limbs per level -> (B, 8): a sibling is its 8 limbs as
+            # 4-byte little-endian words.
+            parts = [self.levels[k][:, rows, sibling[k]].t().reshape(-1).to(torch.int64) for k in range(height)]
+            words, word_type = 8, "<u4"
+        else:
+            parts = [self.levels[k][rows, sibling[k]].reshape(-1) for k in range(height)]
+            words, word_type = 4, "<i8"
         parts.append(self.lo[rows, torch.from_numpy(idx).to(device)].to(torch.int64))
         host = torch.cat(parts).cpu().numpy()
 
-        sib = host[: height * B * 4].reshape(height, B, 4).astype("<i8")
-        leaf_values = host[height * B * 4 :]
+        sib = host[: height * B * words].reshape(height, B, words).astype(word_type)
+        leaf_values = host[height * B * words :]
         is_right = ((idx[None, :] >> shifts) & 1).astype(bool)  # (height, B)
         return [
             OpeningProof(

@@ -51,9 +51,12 @@ parameters, claims, openings, verification, the host encoder and hasher
 that the verifier re-runs on the opened rows) is carried over;
 ``ligero_commit_mixed`` is the port's own: it takes an explicit
 ``device``, assembles the matrix on the host, uploads it as plain u32
-words, and encodes and column-hashes it there with the streamed K5 commit
-(ops/ligero_dev.py), so only the 32-byte leaf digests come back.  Root,
-digests and levels equal zigz_tpu's host path (tests/test_torch_ligero.py).
+words (or stitches it on the device from device-built columns and the
+host-only rows, ``_assemble_mat_dev``), and encodes and column-hashes it
+there with the streamed K5 commit (ops/ligero_dev.py) or, in Poseidon2
+mode, the column sponge of ops/poseidon2.py, so only the 32-byte leaf
+digests come back.  Root, digests and levels equal zigz_tpu's host path
+(tests/test_torch_ligero.py).
 ``state.matrix`` stays host numpy, because ``ligero_prove_mixed`` runs its
 query-row vecmat on the host; ``state.encoded`` is a ``StreamedEncoded``,
 whose ``gather`` re-encodes on the device at open time and whose
@@ -61,8 +64,7 @@ whose ``gather`` re-encodes on the device at open time and whose
 no host encode or host hash, no way back to them, no size gate and no
 environment switch: ``commit_path`` is always ``"stream-dev"``.  Not
 carried over: the JAX branches, the width-packed upload
-(``_pack_rows_host``), the device matrix assembly (``_assemble_mat_dev``,
-with ops/advice_dev) and the mesh path.
+(``_pack_rows_host``) and the mesh path.
 """
 
 from __future__ import annotations
@@ -338,14 +340,18 @@ class LigeroCommitState:
     offsets: Dict[str, int] = None  # first matrix row of each column
     heights: Dict[str, int] = None  # m_k rows per column
 
-    def device_column(self, name: str):
+    def device_column(self, name: str, *, required: bool = False):
         """:class:`DeviceColumnRef` onto the resident device matrix for a
         committed column when this commitment keeps its matrix on the
         device (the streamed commit), else None.  Lets the device
         zerochecks read the resident matrix instead of uploading the
-        column again."""
+        column again.  ``required`` is for a caller that has no other
+        source (the device advice twins): a column that is not resident is
+        then an error."""
         mat_dev = getattr(self.encoded, "mat_dev", None)
         if mat_dev is None or self.offsets is None or name not in self.offsets:
+            if required:
+                raise RuntimeError(f"committed column {name} is not resident on the device")
             return None
         return DeviceColumnRef(
             mat=mat_dev,
@@ -389,8 +395,25 @@ class LigeroEvalProof:
 def _hash_columns(encoded: np.ndarray, hash_mode: str) -> bytes:
     """Leaf digest per column of the encoded matrix."""
     rows, n_e = encoded.shape
+    if hash_mode == "poseidon2":
+        from ..core import poseidon2 as p2
+
+        from ..runtime import native_p2_matrix_columns
+
+        # threaded C++ sponge (runtime/sha3.cpp), byte-identical; None where
+        # the runtime does not take this matrix, and an error is an error
+        native = native_p2_matrix_columns(encoded)
+        if native is not None:
+            return native
+        state = np.zeros((p2.T, n_e), dtype=np.uint64)
+        state[p2.RATE] = rows % P  # length domain separation, as in the sponge
+        for off in range(0, max(rows, 1), p2.RATE):
+            block = encoded[off : off + p2.RATE]
+            state[: block.shape[0]] = (state[: block.shape[0]] + block) % np.uint64(P)
+            state = p2.np_permute(state)
+        return state[:8].T.astype("<u4").tobytes()
     if hash_mode != "sha3":
-        raise NotImplementedError(f"hash mode {hash_mode!r} is not ported (sha3 only)")
+        raise ValueError(f"unknown hash mode {hash_mode!r}")
     import hashlib
 
     # Narrow leaf preimage: canonical values (< 2^31) absorbed as 4-byte
@@ -551,7 +574,12 @@ def _pow_range(base: int, count: int) -> np.ndarray:
 def _vecmat(a: np.ndarray, matrix: np.ndarray) -> np.ndarray:
     """out[j] = sum_i a[i]*M[i, j] mod P (native 128-bit accumulate when
     available; exact numpy fallback — row count < 2^33 keeps the uint64
-    sum of sub-2^31 products from wrapping)."""
+    sum of sub-2^31 products from wrapping).  A matrix that lies on the
+    device (an ops/ligero_dev.py ``ligero_commit_device`` state) reduces there."""
+    if isinstance(matrix, torch.Tensor):
+        from ..ops.ligero_dev import vecmat_device
+
+        return vecmat_device(a, matrix)
     try:
         from ..runtime import native_mod_vecmat
 
@@ -634,7 +662,13 @@ def ligero_prove_claims(state: LigeroCommitState, claims: List[LigeroClaim],
         ws.append(w)
 
     indices = [transcript.challenge_index(state.n_e) for _ in range(params.num_queries)]
-    columns = state.encoded[:, indices].T.astype(np.uint64)  # (t, B*m)
+    if isinstance(state.encoded, np.ndarray):
+        columns = state.encoded[:, indices].T.astype(np.uint64)  # (t, B*m)
+    else:
+        # Device-resident encoded matrix: gather the t opened columns on
+        # the device, download only them (t * B*m values).
+        idx = torch.as_tensor(indices, dtype=torch.int64, device=state.encoded.device)
+        columns = state.encoded.index_select(1, idx).cpu().numpy().T.astype(np.uint64)
     nodes = _multiproof_nodes(state, indices)
     return LigeroEvalProof(us=us, ws=ws, columns=columns, nodes=nodes)
 
@@ -737,12 +771,30 @@ def ligero_column_evals(state: LigeroCommitState, rs: List) -> Dict[str, object]
     p = np.uint64(P)
     a, b = _row_col_weights(rs, state.cn)
     if isinstance(a, Ext4):
+        if isinstance(state.matrix, torch.Tensor):
+            # Device-resident matrix: 16 base-coordinate passes
+            # a_e^T M b_f recombined as X^(e+f) basis products.
+            from ..core.ext4 import _BASIS, ext_lift
+            from ..ops.ligero_dev import column_evals_device
+
+            evals = {name: ext_lift(0) for name in state.names}
+            for e in range(4):
+                for f in range(4):
+                    part = column_evals_device(state, a.c[e], b.c[f])
+                    basis = _BASIS[e] * _BASIS[f]
+                    for name, val in part.items():
+                        evals[name] = evals[name] + basis * val
+            return evals
         evals = {}
         for k, name in enumerate(state.names):
             block = state.matrix[k * state.m : (k + 1) * state.m]
             u = _vecmat_ext(a, block)
             evals[name] = (u * b).sum()
         return evals
+    if isinstance(state.matrix, torch.Tensor):
+        from ..ops.ligero_dev import column_evals_device
+
+        return column_evals_device(state, a, b)
     b = b % p
     evals = {}
     for k, name in enumerate(state.names):
@@ -825,24 +877,76 @@ def mixed_layout(col_vars: Dict[str, int], cn: int):
     return names, offsets, heights, off
 
 
+# Columns placed into a commit matrix from device tensors, and matrix rows
+# uploaded from the host, by ligero_commit_mixed(dev_columns=...) since the
+# last reset.
+STITCHED = {"dev_columns": 0, "host_rows": 0}
+
+
+def _assemble_mat_dev(mat: np.ndarray, dev_columns: Dict[str, torch.Tensor], names, offsets,
+                      heights, col_vars, dev: torch.device) -> torch.Tensor:
+    """The (total_rows, n) canonical int32 device matrix, stitched from
+    device-built columns plus an upload of the rows that only the host has.
+    Equal to the upload of the host-assembled ``mat`` (same row layout, zero
+    padding for short columns).  A device column of another length than its
+    host twin, or one that is not a column of this commitment, is an error."""
+    total_rows, n = mat.shape
+    unknown = sorted(set(dev_columns) - set(names))
+    if unknown:
+        raise ValueError(f"device columns {unknown} are not columns of this commitment")
+    out = torch.zeros((total_rows, n), dtype=torch.int32, device=dev)
+    host_runs = []  # [first, past-the-last) of consecutive rows that only the host has
+    for name in names:
+        off, m_k = offsets[name], heights[name]
+        col = dev_columns.get(name)
+        if col is None:
+            if host_runs and host_runs[-1][1] == off:
+                host_runs[-1][1] = off + m_k
+            else:
+                host_runs.append([off, off + m_k])
+            continue
+        length = 1 << col_vars[name]
+        if col.numel() != length or col.device != dev:
+            raise ValueError(f"device column {name}: {col.numel()} values on {col.device}, "
+                             f"expected {length} on {dev}")
+        if length >= n:
+            out[off : off + m_k] = col.reshape(m_k, n)
+        else:
+            out[off, :length] = col.reshape(-1)
+    for first, past in host_runs:
+        out[first:past] = torch.from_numpy(mat[first:past].astype(np.uint32).view(np.int32)).to(dev)
+        STITCHED["host_rows"] += past - first
+    STITCHED["dev_columns"] += len(dev_columns)
+    return out
+
+
 def ligero_commit_mixed(F, columns: Dict[str, np.ndarray], hash_mode: str = "sha3", *,
-                        device) -> LigeroCommitState:
+                        device, dev_columns: Dict[str, torch.Tensor] = None) -> LigeroCommitState:
     """Commit power-of-two-length MLEs of heterogeneous sizes (name ->
     canonical values) under one column-Merkle root, on ``device``, with
     the default ``LigeroParams`` and one claim as the layout hint (what
     the v2 prover and verifier use).
 
-    ``state.commit_timings`` holds ``assemble_s`` (the host matrix and its
-    u32 words), ``upload_s`` (host to device), ``stream_s`` (encode +
-    absorb) and ``levels_s`` (host Merkle levels), each read after a
-    synchronize."""
-    from ..ops.keccak import digests_to_bytes
-    from ..ops.ligero_dev import StreamedEncoded, sha3_columns_stream
+    ``dev_columns`` (name -> flat canonical tensor on ``device``) are twins of
+    some of ``columns`` that already lie on the device (ops/advice_dev.py):
+    they are placed into the device matrix as they are and only the other
+    rows are uploaded.  The host ``matrix`` is assembled all the same: the
+    openings and the batch evaluation read it.
+
+    ``hash_mode`` ``"sha3"`` column-hashes with the K5 stream,
+    ``"poseidon2"`` with the column sponge of ops/poseidon2.py over the same
+    encode stream.
+
+    ``state.commit_timings`` holds ``assemble_s`` (the host matrix),
+    ``upload_s`` (its u32 words host to device, or the stitch and the upload
+    of the host-only rows), ``stream_s`` (encode + absorb) and ``levels_s``
+    (host Merkle levels), each read after a synchronize."""
+    from ..ops.ligero_dev import StreamedEncoded
 
     if F.MODULUS != P:
         raise ValueError(f"the port's field is BabyBear (p = {P}), not {F.MODULUS}")
-    if hash_mode != "sha3":
-        raise ValueError(f"hash_mode {hash_mode!r} is not ported (v2 commits with sha3)")
+    if hash_mode not in ("sha3", "poseidon2"):
+        raise ValueError(f"unknown hash mode {hash_mode!r}")
     dev = resolve_device(device)
     params = LigeroParams()
     t0 = time.perf_counter()
@@ -866,13 +970,23 @@ def ligero_commit_mixed(F, columns: Dict[str, np.ndarray], hash_mode: str = "sha
             mat[off : off + m_k] = arr.reshape(m_k, n)
         else:
             mat[off, : len(arr)] = arr
-    words = mat.astype(np.uint32).view(np.int32)
     t1 = time.perf_counter()
-    rows = torch.from_numpy(words).to(dev)
+    if dev_columns:
+        rows = _assemble_mat_dev(mat, dev_columns, names, offsets, heights, col_vars, dev)
+    else:
+        rows = torch.from_numpy(mat.astype(np.uint32).view(np.int32)).to(dev)
     synchronize(dev)
     t2 = time.perf_counter()
-    digests = sha3_columns_stream(rows, n_e)
-    leaf_digests = digests_to_bytes(digests)  # the copy to the host waits for the card
+    # The copy of the digests to the host waits for the card.
+    if hash_mode == "poseidon2":
+        from ..ops.poseidon2 import limbs_to_bytes, p2_columns_stream
+
+        leaf_digests = limbs_to_bytes(p2_columns_stream(rows, n_e))
+    else:
+        from ..ops.keccak import digests_to_bytes
+        from ..ops.ligero_dev import sha3_columns_stream
+
+        leaf_digests = digests_to_bytes(sha3_columns_stream(rows, n_e))
     t3 = time.perf_counter()
     levels = _build_levels(leaf_digests, hash_mode)
     t4 = time.perf_counter()

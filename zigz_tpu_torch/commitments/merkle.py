@@ -101,8 +101,12 @@ class OpeningProof:
 
 def _hash_fns(hash_mode: str):
     """(batch_leaf, batch_merge, scalar_hasher_class) for a mode."""
+    if hash_mode == "poseidon2":
+        from ..core.poseidon2 import Poseidon2Hasher, np_batch_leaf_hashes, np_batch_merge_hashes
+
+        return np_batch_leaf_hashes, np_batch_merge_hashes, Poseidon2Hasher
     if hash_mode != "sha3":
-        raise NotImplementedError(f"hash mode {hash_mode!r} is not ported (sha3 only)")
+        raise ValueError(f"unknown hash mode {hash_mode!r}")
     return batch_leaf_hashes, batch_merge_hashes, SHA3Hasher
 
 

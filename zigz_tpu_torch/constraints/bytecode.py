@@ -945,6 +945,14 @@ class BytecodeArgument:
     def advice_phase(self, transcript) -> Dict[str, np.ndarray]:
         return _bc_advice_phase(self, transcript)
 
+    def device_advice(self, data_state):
+        """Device twin of the bulk of the advice build, for the commit
+        (ops/advice_dev.py ``bytecode_advice_dev``; the host columns stay
+        authoritative, see prover/unified.py)."""
+        from ..ops.advice_dev import bytecode_advice_dev
+
+        return bytecode_advice_dev(data_state, self, self.num_vars)
+
     def zerocheck_phase(self, transcript, sink) -> None:
         _bc_zerocheck_phase(self, transcript, sink)
 

@@ -134,6 +134,16 @@ class CoreV2Argument:
                          for e in range(4)}
         return dict(self.g_coords)
 
+    def device_advice(self, data_state):
+        """Device twin of the g1/g2 build for the advice commit (see
+        prover/unified.py; host columns above stay authoritative)."""
+        from ..ops.advice_dev import core_logup_advice_dev
+
+        pc_ref = data_state.device_column("v2:pc", required=True)
+        npc_ref = data_state.device_column("v2:next_pc", required=True)
+        w = self.witness
+        return core_logup_advice_dev(pc_ref, npc_ref, w.num_steps, w.num_vars, self.tau_lu, self.beta_lu)
+
     def zerocheck_phase(self, transcript, sink) -> None:
         F, witness = self.F, self.witness
         p = F.MODULUS

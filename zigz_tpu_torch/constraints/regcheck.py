@@ -530,6 +530,24 @@ class RegcheckArgument:
         self.h_sum = h_sum
         return {**self.g_coords, **self.h_coords}
 
+    def device_advice(self, data_state):
+        """Device twin of the advice build for the commit (see
+        prover/unified.py; the host columns above stay authoritative)."""
+        from ..ops.advice_dev import regcheck_advice_dev
+
+        needed = set(a for (a, _c) in _RANGED)
+        for m in (1, 2, 3):
+            for side in ("r", "w"):
+                a_name, vpre = _kappa_parts(m, side)
+                needed.add(a_name)
+                needed.update(f"{vpre}_{k}" for k in range(4))
+            needed.add(f"rt{m}")
+        refs = {name: data_state.device_column(f"{self.ns}:{name}", required=True) for name in sorted(needed)}
+        return regcheck_advice_dev(
+            refs, self.n, self.num_vars, self.tau_m, self.tau_r, self.gamma,
+            data_state.device_column(f"{self.ns}:m", required=True),
+        )
+
     def zerocheck_phase(self, transcript, sink) -> None:
         F = self.F
         p = F.MODULUS

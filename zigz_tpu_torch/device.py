@@ -1,7 +1,9 @@
 """Device selection and the card probe.
 
-Every entry point of the port takes an explicit ``device``.  ``"cuda"`` on a
-host without a usable CUDA device raises: nothing quietly becomes the CPU.
+The entry points (``Prover``, the CLI's ``prove``) run on ``"cuda"`` unless
+the caller names another device; every function below them takes an explicit
+``device``.  ``"cuda"`` on a host without a usable CUDA device raises:
+nothing quietly becomes the CPU.
 """
 
 from __future__ import annotations

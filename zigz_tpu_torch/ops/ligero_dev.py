@@ -1,5 +1,6 @@
 """Ligero commitments on the device: column sponges K4/K5, the streamed
-commit, the opened-column gather and ``ligero_commit_device``.
+commit, the opened-column gather, ``ligero_commit_device`` and the query-row
+products of a commitment whose matrix lies on the device.
 
 Counterpart of zigz_tpu/ops/ligero_dev.py.  A Ligero leaf is the SHA3-256 of
 one column of the Reed-Solomon-encoded matrix, its canonical values taken
@@ -29,7 +30,7 @@ padding is a tile constraint and is not carried over.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -39,6 +40,7 @@ from ..commitments.ligero import LigeroCommitState, LigeroParams, _build_levels
 from . import _build
 from .babybear import P
 from .keccak import _keccak_f1600, digests_to_bytes
+from .mle import sum_mod
 from .ntt_dev import encode_rows
 
 __all__ = [
@@ -48,6 +50,8 @@ __all__ = [
     "gather_encoded_columns",
     "StreamedEncoded",
     "ligero_commit_device",
+    "vecmat_device",
+    "column_evals_device",
     "LAUNCHES",
 ]
 
@@ -208,10 +212,10 @@ def ligero_commit_device(F, names, rows: torch.Tensor) -> LigeroCommitState:
     ``rows`` is a (B, 2^v) canonical int32 tensor whose rows are the MLEs in
     ``sorted(names)`` order.  Root, leaf digests and levels equal zigz_tpu's
     ``ligero_commit`` of the same columns.  The matrix and the encoded
-    matrix are handed over as host numpy (uint64 and uint32, as
-    ``ligero_commit`` has them), for ``ligero_prove_eval`` and
-    ``ligero_column_evals``.  The default ``LigeroParams``; SHA3 only (the
-    v4 hash mode)."""
+    matrix stay on the device as int32 tensors: ``ligero_prove_eval`` and
+    ``ligero_column_evals`` branch on the type and reach
+    :func:`vecmat_device` and :func:`column_evals_device`.  The default
+    ``LigeroParams``; SHA3 only."""
     if F.MODULUS != P:
         raise ValueError(f"the port's field is BabyBear (p = {P}), not {F.MODULUS}")
     if rows.dim() != 2 or rows.dtype != torch.int32:
@@ -237,9 +241,34 @@ def ligero_commit_device(F, names, rows: torch.Tensor) -> LigeroCommitState:
         m=m,
         n=n,
         n_e=n_e,
-        matrix=mat.cpu().numpy().astype(np.uint64),
-        encoded=encoded.cpu().numpy().view(np.uint32),
+        matrix=mat,
+        encoded=encoded,
         leaf_digests=leaf_digests,
         levels=levels,
         hash_mode="sha3",
     )
+
+
+def _weights(a: np.ndarray, device) -> torch.Tensor:
+    """Host base-field weights -> canonical int64 on ``device``."""
+    reduced = np.asarray(a, dtype=np.uint64) % np.uint64(P)
+    return torch.from_numpy(reduced.astype(np.int64)).to(device)
+
+
+def vecmat_device(a: np.ndarray, matrix: torch.Tensor) -> np.ndarray:
+    """out[j] = sum_i a[i] * M[i, j] mod p for a device-resident canonical
+    matrix; ``a`` is host-side, the result host uint64.  Each product of two
+    values below p fits int64 and is reduced before the column sum."""
+    prods = (matrix.to(torch.int64) * _weights(a, matrix.device)[:, None]).remainder_(P)
+    return sum_mod(prods, dim=0).cpu().numpy().astype(np.uint64)
+
+
+def column_evals_device(state: LigeroCommitState, a: np.ndarray, b: np.ndarray) -> Dict[str, int]:
+    """Per-column MLE evaluations a^T M_k b for all blocks of a device commit
+    state in one batched pass."""
+    B = len(state.names)
+    mat = state.matrix.to(torch.int64).view(B, state.m, state.n)
+    u = sum_mod((mat * _weights(a, mat.device)[None, :, None]).remainder_(P), dim=1)  # (B, n)
+    vals = sum_mod((u * _weights(b, mat.device)[None, :]).remainder_(P), dim=-1)  # (B,)
+    host = vals.cpu().numpy()
+    return {name: int(host[k]) for k, name in enumerate(state.names)}

@@ -35,8 +35,11 @@ There is no size gate, no environment switch and no backend probe: the
 device paths run on the smallest traces too, and ``device="cpu"`` runs the
 same code with the kernels' plain PyTorch versions.  The transcript itself
 stays on the host: it is sequential, cheap, and consensus-critical.
-Protocol versions 3 and 4 (Poseidon2 commitments, the Ligero witness PCS)
-are not ported and raise ``NotImplementedError``.
+Protocol v3 is v2 with Poseidon2-over-BabyBear as the hash of the forest
+and of both Ligero commitments (ops/poseidon2.py, torch ops on the device);
+protocol v4 is v2 with the 43 witness MLEs as ``w:<name>`` columns of the
+DATA commitment and no forest (constraints/core_arg.py).  ``device``
+defaults to the card and raises where there is none.
 """
 
 from __future__ import annotations
@@ -70,13 +73,10 @@ class EmptyTrace(Exception):
 class Prover:
     """Prover(F) twin (prover.zig:27-561)."""
 
-    def __init__(self, F, *, device, seed: int = 0, verbose: bool = False,
+    def __init__(self, F, *, device="cuda", seed: int = 0, verbose: bool = False,
                  use_native_vm: Optional[bool] = None, protocol_version: int = 1):
-        if protocol_version not in (1, 2):
-            raise NotImplementedError(
-                f"protocol_version={protocol_version} is not ported yet: v3 and v4 come "
-                "with slice 4 (Poseidon2, the v4 witness PCS)"
-            )
+        if protocol_version not in (1, 2, 3, 4):
+            raise ValueError(f"protocol_version={protocol_version}: expected 1, 2, 3 or 4")
         if F.MODULUS != bb.P:
             raise ValueError(f"the port's field is BabyBear (p = {bb.P}), not {F.MODULUS}")
         self.F = F
@@ -92,12 +92,15 @@ class Prover:
             use_native_vm = native_vm.available()
         self.use_native_vm = use_native_vm
         # v1 = reference wire parity; v2 = real zerocheck + Lasso under two
-        # Ligero commitments (SHA3).
+        # Ligero commitments (SHA3); v3 = v2 with Poseidon2-over-BabyBear
+        # commitments; v4 = v2 with the 43 witness MLEs under the DATA
+        # Ligero commitment, opened at the zerocheck point, in place of the
+        # Merkle forest and its point-to-index openings.
         self.protocol_version = protocol_version
         self.last_timings = {}
 
     def _hash_mode(self) -> str:
-        return "sha3"
+        return "poseidon2" if self.protocol_version == 3 else "sha3"
 
     def _log(self, msg: str) -> None:
         if self.verbose:
@@ -186,8 +189,13 @@ class Prover:
             self._generate_lasso_proofs(proof, lookup_count)
         t3 = time.perf_counter()
 
-        # STEP 6: commitments (prover.zig:371-467).
-        self._generate_commitments(proof, witness)
+        # STEP 6: commitments (prover.zig:371-467).  v4 replaces the 43
+        # Merkle trees + point-to-index openings with the Ligero witness
+        # PCS already emitted in the zerocheck phase.
+        if self.protocol_version < 4:
+            self._generate_commitments(proof, witness)
+        else:
+            proof.witness_commitments = []
         t4 = time.perf_counter()
 
         # STEP 7: public IO (prover.zig:513-559).
@@ -400,7 +408,7 @@ class Prover:
         self.last_timings["witness_dev_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        forest = DeviceMerkleForest(self.F, lo=lo)
+        forest = DeviceMerkleForest(self.F, lo=lo, hash_mode=self._hash_mode())
         synchronize(self.device)
         self.last_timings["forest_s"] = time.perf_counter() - t0
 

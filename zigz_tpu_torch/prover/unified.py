@@ -42,9 +42,10 @@ commitments are encoded and column-hashed there (commitments/ligero.py,
 the K5 kernel), and every argument is handed the device next to the commit
 states, so its zerochecks run on ``GenericDeviceZerocheckExt`` and read
 the committed columns from the resident matrices.  The transcript
-schedule and the ``timings`` keys are the JAX package's.  Not ported: the
-mesh path and the device advice builders (zigz_tpu/ops/advice_dev.py), so
-``advice_dev_cols`` is 0 and the ADVICE columns are built on the host.
+schedule and the ``timings`` keys are the JAX package's.  The arguments'
+``device_advice`` hooks rebuild their ADVICE columns on the device
+(ops/advice_dev.py) for the advice commit; ``advice_dev_s`` and
+``advice_dev_cols`` time and count them.  Not ported: the mesh path.
 """
 
 from __future__ import annotations
@@ -113,12 +114,13 @@ def _namespace(arg, cols: Dict[str, np.ndarray], commit_key: str,
         full[fn] = arr
 
 
-def _commit(F, key: str, columns, hash_mode, device, timings) -> LigeroCommitState:
+def _commit(F, key: str, columns, hash_mode, device, timings, dev_columns=None) -> LigeroCommitState:
     t0 = time.perf_counter()
-    state = ligero_commit_mixed(F, columns, hash_mode, device=device)
+    state = ligero_commit_mixed(F, columns, hash_mode, device=device, dev_columns=dev_columns)
     if timings is not None:
         timings[f"{key}_commit_s"] = time.perf_counter() - t0
         timings[f"{key}_commit_path"] = state.commit_path
+        timings[f"{key}_commit_shape"] = (state.matrix.shape[0], state.n, state.n_e)  # total_rows, n, n_e
         timings.update({f"{key}_{name}": seconds for name, seconds in state.commit_timings.items()})
     return state
 
@@ -143,13 +145,34 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
         _namespace(a, a.advice_phase(transcript), "advice", advice_full)
     if timings is not None:
         timings["advice_build_s"] = time.perf_counter() - t0
-        if data_state is not None and advice_full:
-            timings["advice_dev_s"] = 0.0
-            timings["advice_dev_cols"] = 0
+
+    # Device twins of the advice columns (ops/advice_dev.py): rebuilt on the
+    # device from the resident data matrix + the host-resolved challenges, so
+    # the advice commit stitches them into its device matrix and uploads only
+    # the host-built rest.  The host columns above stay authoritative for
+    # the transcript sums, the batch evaluation and the openings' host
+    # matrix; bit-equality of the twins is guaranteed by exact mod-p
+    # arithmetic (tests/test_torch_advice.py).  A twin that fails makes
+    # the prove fail: there is no way back to the host upload.
+    advice_dev: Dict[str, object] = {}
+    if data_state is not None and advice_full:
+        t0 = time.perf_counter()
+        for a in args:
+            build = getattr(a, "device_advice", None)
+            if build is None:
+                continue
+            for local, arr in build(data_state).items():
+                advice_dev[f"{a.ns}:{local}"] = arr
+        synchronize(device)
+        if timings is not None:
+            timings["advice_dev_s"] = time.perf_counter() - t0
+            timings["advice_dev_cols"] = len(advice_dev)
 
     advice_state = None
     if advice_full:
-        advice_state = _commit(F, "advice", advice_full, hash_mode, device, timings)
+        advice_state = _commit(F, "advice", advice_full, hash_mode, device, timings,
+                               dev_columns=advice_dev or None)
+        del advice_dev
         transcript.append_bytes(b"V2_ADVICE")
         transcript.append_bytes(advice_state.root)
 

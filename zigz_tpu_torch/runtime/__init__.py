@@ -433,6 +433,96 @@ def native_sha3_matrix_columns(matrix: np.ndarray):
     return out.tobytes()
 
 
+_p2_consts = None
+_p2_ok = None
+
+
+def _p2_constants():
+    """ctypes-ready Poseidon2 constant arrays from the Python generator
+    (core/poseidon2.py — the single source of truth)."""
+    global _p2_consts
+    if _p2_consts is None:
+        from ..core import poseidon2 as p2
+
+        _p2_consts = (
+            np.ascontiguousarray(p2._RC_EXTERNAL, dtype=np.uint64),
+            np.ascontiguousarray(p2._RC_INTERNAL, dtype=np.uint64),
+            np.ascontiguousarray(p2._MU, dtype=np.uint64),
+        )
+    return _p2_consts
+
+
+def _p2_selftest() -> bool:
+    """One-time parity check of the native sponge vs the numpy twin."""
+    global _p2_ok
+    if _p2_ok is None:
+        try:
+            probe = np.arange(24, dtype=np.uint64).reshape(3, 8) * np.uint64(97)
+            got = _p2_columns_raw(probe)
+            from ..core import poseidon2 as p2
+
+            want = bytearray()
+            for j in range(probe.shape[1]):
+                want += p2.hash_field_values([int(v) for v in probe[:, j]])
+            _p2_ok = got == bytes(want)
+        except Exception:
+            _p2_ok = False
+    return _p2_ok
+
+
+def _p2_columns_raw(matrix: np.ndarray):
+    rc_ext, rc_int, mu = _p2_constants()
+    rows, n = matrix.shape
+    out = np.empty(n * 32, dtype=np.uint8)
+    if matrix.dtype == np.uint32:
+        matrix = np.ascontiguousarray(matrix, dtype=np.uint32)
+        fn = _lib.zigz_p2_matrix_columns_u32
+    else:
+        matrix = np.ascontiguousarray(matrix, dtype=np.uint64)
+        fn = _lib.zigz_p2_matrix_columns
+    fn(
+        matrix.ctypes.data_as(ctypes.c_void_p), ctypes.c_size_t(rows),
+        ctypes.c_size_t(n), rc_ext.ctypes.data_as(ctypes.c_void_p),
+        rc_int.ctypes.data_as(ctypes.c_void_p),
+        mu.ctypes.data_as(ctypes.c_void_p),
+        out.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(NUM_THREADS),
+    )
+    return out.tobytes()
+
+
+def native_p2_matrix_columns(matrix: np.ndarray):
+    """Per-column Poseidon2 sponge digests of a row-major (rows, n)
+    matrix (uint64 or uint32 storage), byte-identical to the numpy
+    sponge in commitments/ligero._hash_columns; None when unavailable."""
+    if _lib is None or not hasattr(_lib, "zigz_p2_matrix_columns"):
+        return None
+    if not _p2_selftest():
+        return None
+    return _p2_columns_raw(matrix)
+
+
+def native_p2_merge(level: bytes):
+    """Poseidon2 merges of consecutive 32-byte digest pairs (internal
+    Merkle nodes), twin of core/poseidon2.np_batch_merge_hashes; None
+    when unavailable."""
+    if _lib is None or not hasattr(_lib, "zigz_p2_merge"):
+        return None
+    if not _p2_selftest():
+        return None
+    rc_ext, rc_int, mu = _p2_constants()
+    k = len(level) // 64
+    buf = np.frombuffer(level, dtype=np.uint8)
+    out = np.empty(k * 32, dtype=np.uint8)
+    _lib.zigz_p2_merge(
+        buf.ctypes.data_as(ctypes.c_void_p), ctypes.c_size_t(k),
+        rc_ext.ctypes.data_as(ctypes.c_void_p),
+        rc_int.ctypes.data_as(ctypes.c_void_p),
+        mu.ctypes.data_as(ctypes.c_void_p),
+        out.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(NUM_THREADS),
+    )
+    return out.tobytes()
+
+
 _id_stream_ok = None
 _id_stream_buf = None
 

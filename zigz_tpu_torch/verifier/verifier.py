@@ -45,12 +45,7 @@ class Verifier:
         self.transcript = FiatShamirTranscript()
 
     def verify(self, proof: Proof, program: bytes) -> str:
-        if proof.metadata.version in (3, 4):
-            raise NotImplementedError(
-                f"protocol v{proof.metadata.version} is not ported yet (Poseidon2 "
-                "commitments, the Ligero witness PCS): v1 and v2 only"
-            )
-        if proof.metadata.version == 2:
+        if proof.metadata.version in (2, 3, 4):
             return self.verify_v2(proof, program)
 
         # Fresh transcript (verifier.zig:55).
