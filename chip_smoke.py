@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's v1 to v4 provers on one NVIDIA GPU and check them.
+"""Drive the PyTorch/CUDA port's v1 to v4 provers, its forest's memory plan
+at 2^25 steps, its base-field device zerocheck and its standalone modules on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        (from the root of a checkout; needs one CUDA device)
 
@@ -55,7 +57,8 @@ the last line:
      Accept.
   5. the v1 main path: Prover(BabyBear, device="cuda").prove at 2^22 NOP
      steps, once, equal to its pinned digest and verified Accept; phase
-     timings, steps/s and peak device memory.
+     timings, steps/s, the forest's plan (nothing freed, one group) and
+     peak device memory, allocated and reserved.
   6. the v2 main path: Prover(BabyBear, device="cuda", protocol_version=2)
      at 2^16 NOP steps, for the fibonacci guest (60,013 steps) and at 2^20
      NOP steps, each equal to its pinned digest and verified Accept.  The
@@ -80,15 +83,52 @@ the last line:
      NOP steps, for the fibonacci guest (60,013 steps) and at 2^20 NOP
      steps: pinned digest, Accept, no SHA3 kernel launched, the Poseidon2
      permutation calls.
+ 10. the forest's memory plan at sizes that have a reference: with the
+     thresholds of commitments/device_forest.py forced low (three levels
+     freed, three groups of 16, 16 and 11 trees), v1 at 2^22 NOP steps and
+     for the fibonacci guest (900,013 steps) and v3 at 2^16 NOP steps
+     (Poseidon2 forest) equal their pinned digests and verify Accept; K1
+     runs once per group and once per freed level of the openings, K2 once
+     per level per group and k times for the freed level k.
+ 11. the size the forest cannot hold whole: Prover(BabyBear).prove at 2^25
+     NOP steps with the thresholds as shipped (the plan frees levels 0..2
+     and builds in groups of 16 trees on its own; all levels would be
+     92.4 GB).  No reference digest exists at this size, so the proof is
+     held three ways: the port's Verifier accepts it (all 43 openings
+     against the roots); every tree's root equals the root of that tree
+     built alone by K1/K2 with nothing freed; every opened sibling, at the
+     freed levels and above, equals the same node of that single-tree
+     build.  Prints forest_s, opens_s, total_s, steps/s, the plan, K1/K2
+     launches, and the peak device memory allocated and reserved.  Then
+     2^24 NOP steps once with the thresholds as shipped and once with
+     nothing freed and one group (the forest as it was before the plan),
+     for the peak each needs.
+ 12. the base-field device zerocheck (ops/zerocheck_gen.py) of a
+     grand-product combiner (five columns, degree 4) at width 2^20 through
+     ``make_zerocheck_prover(..., device=card)``, against the native C++
+     prover from the same transcript: round values, challenges, terminal
+     evaluations and the transcript's next challenge equal; time and sweep
+     launches printed.
+ 13. the standalone modules, host code that must import and run here with
+     JAX blocked: ``SumcheckProver.prove`` on a 2^16 polynomial, accepted by
+     ``SumcheckVerifier.verify_rounds`` against the hypercube sum; a
+     ``LassoProver`` proof of 64 queries into the 4-bit XOR table, whose
+     rounds verify against the queries' sum and which
+     ``LassoVerifier.verify_fast`` accepts; ``HostMerkleForest`` (one
+     native call) roots and openings equal ``DeviceMerkleForest`` on the
+     card at 43 x 2^12.
 
 The kernel launch counters are reset before each prove or commit and must
-be > 0 after it; the kernel line takes K1/K2's from phase 5, K5's from the
+be > 0 after it; the kernel line takes K1/K2's from phase 5
+(``launches_large`` beside them from the 2^25 prove of phase 11), K5's from the
 2^20 prove of phase 6 (``launches_v4`` beside it from phase 8) and K4's from
-phase 7.  The last three lines are the
+phase 7; K3, the permutation inlined in all four, is listed with K2's
+measurements (one permutation per thread) and K1's plus K2's launches.  The last three lines are the
 kernel JSON line, the card's nvidia-smi line and the result line
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -118,6 +158,7 @@ def sha(data: bytes) -> str:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -130,14 +171,18 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from zigz_tpu_torch.commitments import ligero
+    from zigz_tpu_torch.commitments import device_forest, host_forest, ligero
     from zigz_tpu_torch.commitments.ligero import ligero_commit
     from zigz_tpu_torch.core import poseidon2 as p2_host
     from zigz_tpu_torch.core.hash import FiatShamirTranscript
-    from zigz_tpu_torch.lookups import pipeline_lasso
-    from zigz_tpu_torch.ops import _build, advice_dev, keccak, ligero_dev, ntt_dev, poseidon2, zerocheck_dev_ext
+    from zigz_tpu_torch.lookups import lasso, pipeline_lasso
+    from zigz_tpu_torch.lookups.table_builder import build_xor_table
+    from zigz_tpu_torch.ops import (_build, advice_dev, keccak, ligero_dev, ntt_dev, poseidon2, witness_dev,
+                                    zerocheck_dev_ext, zerocheck_gen)
+    from zigz_tpu_torch.ops.zerocheck_native import NativeZerocheckProver
+    from zigz_tpu_torch.prover import prover as prover_module
     from zigz_tpu_torch.prover import unified
-    from zigz_tpu_torch.proofs.zerocheck import count_zerocheck_proofs
+    from zigz_tpu_torch.proofs.zerocheck import count_zerocheck_proofs, make_zerocheck_prover
     from zigz_tpu_torch import runtime
     from zigz_tpu_torch.runtime import native_vm
 
@@ -410,7 +455,7 @@ def main() -> int:
     def timings(prover) -> str:
         t = prover.last_timings
         keys = ("total_s", "execute_s", "witness_dev_s", "forest_s", "evals_s", "opens_s",
-                "sumcheck_lasso_s", "commitments_s")
+                "sumcheck_lasso_s", "commitments_s", "forest_plan")
         return " ".join(f"{k}={t[k]}" for k in keys) + f" steps_per_s={t['num_steps'] / t['total_s']}"
 
     # -- phase 3: golden fixtures -----------------------------------------
@@ -443,8 +488,11 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     data, prover, main_counts = port_prove(program, entry, segments, tape, max_steps)
     check_pinned("v1-nop-2^22", case, data, prover.last_timings["num_steps"])
+    if prover.last_timings["forest_plan"]["discarded_levels"] or prover.last_timings["forest_plan"]["groups"] != 1:
+        raise AssertionError(f"the shipped plan frees or groups at 2^22 steps: {prover.last_timings['forest_plan']}")
     log(f"phase 5 v1-nop-2^22: sha256 {sha(data)[:16]} == pinned, {len(data)} B, Accept, launches {main_counts}, "
-        f"peak device memory {torch.cuda.max_memory_allocated(dev)} B")
+        f"peak device memory {torch.cuda.max_memory_allocated(dev)} B allocated, "
+        f"{torch.cuda.max_memory_reserved(dev)} B reserved")
     log(f"  port timings: {timings(prover)}")
     del data, program
     torch.cuda.empty_cache()
@@ -614,6 +662,194 @@ def main() -> int:
         f"K4 launches {columns_launches}; opened through vecmat_device/column_evals_device in {open_s} s "
         f"== the host opening, ligero_verify_eval accepts")
 
+    # -- phase 10: the forest's memory plan, where a reference exists -------
+    @contextlib.contextmanager
+    def forest_thresholds(discard, group):
+        """commitments/device_forest.py's thresholds for the proves inside."""
+        shipped = device_forest.DISCARD_DIGESTS, device_forest.GROUP_LEAF_DIGESTS
+        device_forest.DISCARD_DIGESTS, device_forest.GROUP_LEAF_DIGESTS = discard, group
+        try:
+            yield
+        finally:
+            device_forest.DISCARD_DIGESTS, device_forest.GROUP_LEAF_DIGESTS = shipped
+
+    for name, version in (("v1-nop-2^22", 1), ("v1-fibonacci-150000", 1), ("v3-nop-2^16", 3)):
+        program, entry, segments, tape, max_steps, case = load_case(name)
+        v = (case["num_steps"] - 1).bit_length()
+        # level 3 of the 43 trees is the widest kept; 16 trees a group
+        with forest_thresholds(discard=(43 << v) >> 3, group=16 << v):
+            if version == 1:
+                data, prover, counts = port_prove(program, entry, segments, tape, max_steps)
+                if counts != {"leaves": 3 + 3, "merge": 3 * v + 3}:
+                    raise AssertionError(f"{name}: launches {counts} are not those of 3 groups and 3 freed levels")
+            else:
+                data, prover, counts, _peak, _work = port_prove_v2(program, entry, segments, tape, max_steps, version)
+        t = prover.last_timings
+        check_pinned(name, case, data, t["num_steps"])
+        plan = t["forest_plan"]
+        if (plan["discarded_levels"], plan["groups"], plan["group_trees"]) != (3, 3, 16):
+            raise AssertionError(f"{name}: the forced plan was not taken: {plan}")
+        log(f"phase 10 {name} under a forced plan {plan}: sha256 {sha(data)[:16]} == pinned, {len(data)} B, Accept, "
+            f"launches {counts}, forest_s={t['forest_s']} opens_s={t['opens_s']} total_s={t['total_s']}")
+        del data, program
+        torch.cuda.empty_cache()
+
+    # -- phase 11: 2^25 steps, which the forest cannot hold whole ----------
+    kept_forest = {}
+    forest_type = prover_module.DeviceMerkleForest
+
+    def keeping_forest(*args, **kwargs):
+        kept_forest["forest"] = forest_type(*args, **kwargs)
+        return kept_forest["forest"]
+
+    def large_prove(v):
+        """One v1 prove at 2^v NOP steps on the default device, verified:
+        (proof, prover, K1/K2 launches)."""
+        program = NOP * (1 << v)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        keccak.LAUNCHES.update(leaves=0, merge=0)
+        prover = zt.Prover(F, seed=0)
+        proof = prover.prove(program, 0x1000, None, 2 << v, None, None)
+        counts = dict(keccak.LAUNCHES)
+        peaks = torch.cuda.max_memory_allocated(dev), torch.cuda.max_memory_reserved(dev)
+        if prover.device.type != "cuda" or proof.metadata.num_steps != 1 << v:
+            raise AssertionError(f"2^{v} steps: proved {proof.metadata.num_steps} steps on {prover.device}")
+        t0 = time.perf_counter()
+        data = ser.serialize(proof)
+        verdict = zt.Verifier(F).verify(ser.deserialize(data), program)
+        if verdict != "Accept":
+            raise AssertionError(f"the port's proof of 2^{v} steps was rejected: {verdict}")
+        t = prover.last_timings
+        log(f"phase 11 v1-nop-2^{v}: {len(data)} B, Accept (serialize, deserialize and verify "
+            f"{time.perf_counter() - t0:.3f} s), launches {counts}, plan {t['forest_plan']}, "
+            f"all levels would hold {43 * ((2 << v) - 1) * 32} B, "
+            f"max_memory_allocated {peaks[0]} B, max_memory_reserved {peaks[1]} B")
+        log(f"  port timings: {timings(prover)}")
+        return proof, prover, counts
+
+    prover_module.DeviceMerkleForest = keeping_forest
+    v = 25
+    proof, prover, large_counts = large_prove(v)
+    prover_module.DeviceMerkleForest = forest_type
+    plan = prover.last_timings["forest_plan"]
+    if (plan["discarded_levels"], plan["group_trees"], plan["groups"]) != (3, 16, 3):
+        raise AssertionError(f"the shipped plan at 2^25 steps is not D = 3 in groups of 16 trees: {plan}")
+    if large_counts != {"leaves": 3 + 3, "merge": 3 * v + 3}:
+        raise AssertionError(f"2^25 steps: launches {large_counts} are not those of the plan")
+    forest = kept_forest.pop("forest")
+    t0 = time.perf_counter()
+    for i, commitment in enumerate(proof.witness_commitments):
+        # tree i alone, every level kept
+        level = keccak.sha3_leaves(forest.lo[i].to(torch.int64))
+        opening = commitment.proof.merkle_proof
+        siblings = []
+        for k in range(v):
+            siblings.append(level[(opening.index >> k) ^ 1])
+            level = keccak.sha3_merge(level.view(-1, 8))
+        if keccak.digests_to_bytes(level) != commitment.commitment:
+            raise AssertionError(f"2^25 steps: the root of tree {i} differs from the tree built alone")
+        want = keccak.digests_to_bytes(torch.stack(siblings))
+        if b"".join(opening.path.siblings) != want:
+            differ = [k for k in range(v) if opening.path.siblings[k] != want[32 * k : 32 * k + 32]]
+            raise AssertionError(f"2^25 steps: tree {i}'s opened siblings differ at levels {differ}")
+        if int(forest.lo[i, opening.index]) != opening.value.value:
+            raise AssertionError(f"2^25 steps: tree {i}'s opened leaf value differs from the witness")
+    log(f"phase 11 v1-nop-2^25: 43 roots and 43 x {v} opened siblings (levels 0..2 recomputed by open_all) == "
+        f"each tree built alone by K1/K2 with every level kept ({time.perf_counter() - t0:.3f} s)")
+    del forest, proof, level, siblings
+    large_prove(24)
+    with forest_thresholds(discard=1 << 62, group=1 << 62):
+        _proof, prover, counts = large_prove(24)
+    if prover.last_timings["forest_plan"]["discarded_levels"] or counts != {"leaves": 1, "merge": 24}:
+        raise AssertionError(f"2^24 steps with nothing freed: {prover.last_timings['forest_plan']}, {counts}")
+    del _proof
+    torch.cuda.empty_cache()
+
+    # -- phase 12: the base-field device zerocheck --------------------------
+    n = 1 << 20
+    zc_rng = np.random.default_rng(12)
+    zc_cols = {name: zc_rng.integers(0, P, size=n, dtype=np.uint64) for name in ("a", "b", "g")}
+    zc_cols["__sel__"] = zc_rng.integers(0, 2, size=n, dtype=np.uint64)
+    zc_cols["__idx__"] = np.arange(n, dtype=np.uint64)
+    zc_tau, zc_gamma = (int(x) for x in zc_rng.integers(1, P, size=2))
+
+    def grand_product(cols, alphas, p):
+        """Fingerprint products, public-column mixing, degree-3 gating."""
+        sel, idx = cols["__sel__"], cols["__idx__"]
+        a, b, g = cols["a"], cols["b"], cols["g"]
+        fp = (zc_tau + p - (a + zc_gamma * b) % p) % p
+        c1 = (g * fp + p - sel) % p
+        c2 = sel * ((1 + p - sel) % p) % p
+        c3 = sel * b % p * ((idx + a) % p) % p
+        return (alphas[0] * c1 + alphas[1] * c2 + alphas[2] * c3) % p
+
+    def zerocheck_run(zc_prover):
+        transcript = FiatShamirTranscript()
+        transcript.append_bytes(b"chip-smoke-zerocheck")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zc = zc_prover.prove(transcript)
+        seconds = time.perf_counter() - t0
+        return (zc.num_vars, zc.degree, zc.round_evals, zc.final_point, zc.column_evals,
+                transcript.challenge_value(P)), seconds
+
+    zerocheck_gen.DEVICE_PROVES.update(count=0, sweep_launches=0)
+    device_zc = make_zerocheck_prover(F, zc_cols, grand_product, 4, num_alphas=3, device=dev)
+    if not isinstance(device_zc, zerocheck_gen.GenericDeviceZerocheck) or device_zc.device.type != "cuda":
+        raise AssertionError(f"make_zerocheck_prover(device=card) gave {type(device_zc).__name__}")
+    on_card, card_s = zerocheck_run(device_zc)
+    on_host, host_s = zerocheck_run(NativeZerocheckProver(F, zc_cols, grand_product, 4, num_alphas=3))
+    if on_card != on_host:
+        raise AssertionError("the base-field device zerocheck differs from the native C++ prover")
+    if zerocheck_gen.DEVICE_PROVES["count"] != 1 or not zerocheck_gen.DEVICE_PROVES["sweep_launches"]:
+        raise AssertionError(f"the zerocheck did not run on the card: {zerocheck_gen.DEVICE_PROVES}")
+    log(f"phase 12 base-field zerocheck, 5 columns x 2^20, degree 4: GenericDeviceZerocheck on the card == "
+        f"NativeZerocheckProver (20 rounds, terminal evaluations {sorted(on_card[4])}, next challenge equal); "
+        f"card {card_s} s with {zerocheck_gen.DEVICE_PROVES['sweep_launches']} sweep launches over "
+        f"{20 - 12} device rounds, native host prover {host_s} s")
+
+    # -- phase 13: the standalone modules ------------------------------------
+    sc_rng = np.random.default_rng(13)
+    poly = zt.Multilinear(F, sc_rng.integers(0, P, size=1 << 16, dtype=np.uint64))
+    t0 = time.perf_counter()
+    sc_proof = zt.SumcheckProver.prove(poly)
+    sc_s = time.perf_counter() - t0
+    ok, final_claim = zt.SumcheckVerifier.verify_rounds(F, sc_proof, poly.sum_over_hypercube())
+    if not ok or final_claim.value != sc_proof.final_eval.value:
+        raise AssertionError("SumcheckVerifier.verify_rounds rejected the 2^16 sumcheck proof")
+    if zt.SumcheckVerifier.verify_rounds(F, sc_proof, poly.sum_over_hypercube().add(F.one()))[0]:
+        raise AssertionError("SumcheckVerifier.verify_rounds accepted a wrong sum")
+    table = build_xor_table(F, 4)
+    picks = [int(i) for i in sc_rng.integers(0, len(table), size=64)]
+    queries = [lasso.LookupQuery(inputs=table.entry(i).inputs, expected_outputs=table.entry(i).outputs)
+               for i in picks]
+    lasso_proof = lasso.LassoProver.prove_with_mapping(F, table, queries, picks)
+    query_sum = F(sum(lasso.hash_entry_chain(F, q.input_values(), q.output_values()).value for q in queries) % P)
+    ok, _claim = zt.SumcheckVerifier.verify_rounds(F, lasso_proof.sumcheck_proof, query_sum)
+    fast = lasso.LassoVerifier.verify_fast(F, lasso_proof, lasso_proof.table_commitment, len(queries),
+                                           lasso_proof.sumcheck_proof.final_eval)
+    wrong_table = lasso.LassoVerifier.verify(F, lasso_proof, build_xor_table(F, 3), len(queries))
+    if not (ok and fast.is_valid) or wrong_table.is_valid:
+        raise AssertionError(f"the Lasso round trip failed: rounds {ok}, {fast.reason}; wrong table: {wrong_table.reason}")
+    matrix = sc_rng.integers(0, P, size=(43, 1 << 12), dtype=np.uint64)
+    if not host_forest.available():
+        raise RuntimeError("zigz_sha3_forest is not in the host runtime")
+    t0 = time.perf_counter()
+    on_host = host_forest.HostMerkleForest(F, matrix)
+    host_forest_s = time.perf_counter() - t0
+    on_card = device_forest.DeviceMerkleForest(F, lo=witness_dev.from_numpy(matrix.astype(np.uint32), dev))
+    indices = sc_rng.integers(0, 1 << 12, size=43)
+    if on_host.roots() != on_card.roots() or any(
+            (a.index, a.value.value, a.path.siblings, a.path.directions)
+            != (b.index, b.value.value, b.path.siblings, b.path.directions)
+            for a, b in zip(on_host.open_all(indices), on_card.open_all(indices))):
+        raise AssertionError("HostMerkleForest differs from DeviceMerkleForest at 43 x 2^12")
+    log(f"phase 13 standalone: SumcheckProver.prove on 2^16 values in {sc_s:.3f} s, verify_rounds accepts "
+        f"({len(sc_proof.to_bytes())} B); Lasso: 64 queries into the 4-bit XOR table, rounds verify, verify_fast "
+        f"accepts, another table rejected ({wrong_table.reason}); HostMerkleForest 43 x 2^12 in "
+        f"{host_forest_s:.3f} s: roots and 43 openings == DeviceMerkleForest on the card")
+
     # -- the contract's lines ----------------------------------------------
     def entry_of(name, key, source, replaces, launches):
         r = results[key]
@@ -621,15 +857,25 @@ def main() -> int:
                 "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
-                "launches_v4": launches_at_2_20[4][key], "launches_v3": launches_at_2_20[3][key]}
+                "launches_v4": launches_at_2_20[4][key], "launches_v3": launches_at_2_20[3][key],
+                "launches_large": large_counts.get(key, 0)}
 
     sha3_source = "zigz_tpu_torch/csrc/sha3_kernels.cu"
     ligero_source = "zigz_tpu_torch/csrc/ligero_kernels.cu"
+    # K3, the permutation, is a device function inlined in the four kernels
+    # and has no launch of its own: it runs in every launch of K1 and K2, and
+    # K2 is exactly one permutation per thread, so its entry carries K2's
+    # measurements and the sum of K1's and K2's launches.
+    permutation = dict(entry_of("keccak_f1600 (K3)", "merge", "zigz_tpu_torch/csrc/keccak.cuh",
+                                "zigz_tpu/ops/keccak_pallas.py:60", main_counts["leaves"] + main_counts["merge"]),
+                       inlined_in=["K1", "K2", "K4", "K5"], measured_as="K2: one permutation per thread",
+                       launches_large=large_counts["leaves"] + large_counts["merge"])
     kernels_line = {"kernels": [
         entry_of("sha3_leaves (K1)", "leaves", sha3_source, "zigz_tpu/ops/keccak_pallas.py:93",
                  main_counts["leaves"]),
         entry_of("sha3_merge (K2)", "merge", sha3_source, "zigz_tpu/ops/keccak_pallas.py:108",
                  main_counts["merge"]),
+        permutation,
         entry_of("sha3_columns (K4)", "columns", ligero_source, "zigz_tpu/ops/ligero_dev.py:45",
                  columns_launches),
         entry_of("sha3_absorb (K5)", "absorb", ligero_source, "zigz_tpu/ops/ligero_dev.py:256",

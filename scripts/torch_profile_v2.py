@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where a v2 prove of the PyTorch port spends its time on the card.
 
-    python scripts/torch_profile_v2.py [--log2-steps 20] [--top 12]
+    python scripts/torch_profile_v2.py [--log2-steps 20] [--top 12] [--trace-dir DIR]
 
 Needs one CUDA device.  Proves ``2^log2_steps`` NOP steps with
 ``zigz_tpu_torch``'s ``Prover(BabyBear, device="cuda", protocol_version=2)``
 twice: once untraced (the warm-up, whose phase timings are printed), once
-under ``torch.profiler``.  Prints the card's nvidia-smi name and power
+under ``torch.profiler`` (``zigz_tpu_torch.utils.profiling.device_trace``,
+which leaves the Chrome trace in ``DIR/trace.json``).  Prints the card's nvidia-smi name and power
 limit, both runs' phase timings, the traced run's wall time, the sum of the
 kernels' device time, the idle share (1 - device time / wall), the device
 time by kernel name, the count of device zerochecks with the DAG sweep's
@@ -29,11 +30,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2-steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--trace-dir", default=os.path.join("build", "torch_profile_v2"))
     args = ap.parse_args()
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("torch_profile_v2: a CUDA device is required", file=sys.stderr)
@@ -42,6 +43,7 @@ def main() -> int:
     from zigz_tpu_torch.device import card_info
     from zigz_tpu_torch.lookups import pipeline_lasso
     from zigz_tpu_torch.ops import zerocheck_dev_ext
+    from zigz_tpu_torch.utils.profiling import device_trace
 
     print(card_info()["nvidia_smi"], flush=True)
     program = bytes([0x13, 0x00, 0x00, 0x00]) * (1 << args.log2_steps)
@@ -68,7 +70,7 @@ def main() -> int:
     print("untraced:", flush=True)
     prove()
     print("traced:", flush=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace(args.trace_dir) as prof:
         wall = prove()
     rows = []
     for ev in prof.key_averages():

@@ -82,6 +82,72 @@ def test_forest_on_the_card_matches_the_cpu(cuda):
     assert on_card.eval_backend(None, points).tolist() == on_cpu.eval_backend(None, points).tolist()
 
 
+@pytest.mark.parametrize("hash_mode", ["sha3", "poseidon2"])
+@pytest.mark.parametrize("discard, group", [(1 << 12, 1 << 14), (1 << 9, 1 << 13), (1, 1 << 11)])
+def test_forest_under_a_forced_plan_on_the_card_matches_the_full_one(cuda, monkeypatch, hash_mode, discard, group):
+    """Levels freed and trees in groups (the last group smaller) against the
+    forest that keeps every level: roots, kept levels, and every opened
+    sibling, the recomputed ones against the full forest's kept levels."""
+    from zigz_tpu_torch.commitments import device_forest
+
+    B, N = 43, 1 << 9
+    matrix = np.random.default_rng(discard + group).integers(0, P, size=(B, N), dtype=np.uint32)
+    lo = witness_dev.from_numpy(matrix, cuda)
+    full = DeviceMerkleForest(BabyBear, lo=lo, hash_mode=hash_mode)
+    assert full.discarded == 0 and full.group_trees == B
+    monkeypatch.setattr(device_forest, "DISCARD_DIGESTS", discard)
+    monkeypatch.setattr(device_forest, "GROUP_LEAF_DIGESTS", group)
+    before = dict(keccak.LAUNCHES)
+    planned = DeviceMerkleForest(BabyBear, lo=lo, hash_mode=hash_mode)
+    plan = planned.plan()
+    assert planned.discarded > 0 and plan["groups"] >= 2 and B % planned.group_trees
+    if hash_mode == "sha3":  # K1 once and K2 once per level, for each group
+        assert keccak.LAUNCHES == {"leaves": before["leaves"] + plan["groups"],
+                                   "merge": before["merge"] + plan["groups"] * planned.height}
+    assert planned.roots() == full.roots()
+    for k, level in enumerate(planned.levels):
+        assert (level is None) == (k < planned.discarded)
+        if level is not None:
+            assert torch.equal(level, full.levels[k])
+    before = dict(keccak.LAUNCHES)
+    idx = np.random.default_rng(11).integers(0, N, size=B)
+    opened = planned.open_all(idx)
+    if hash_mode == "sha3":  # K1 once per freed level, K2 k times for level k
+        D = planned.discarded
+        assert keccak.LAUNCHES == {"leaves": before["leaves"] + D, "merge": before["merge"] + D * (D - 1) // 2}
+    for a, b in zip(opened, full.open_all(idx)):
+        assert (a.index, a.value.value, a.path.siblings, a.path.directions) == (
+            b.index, b.value.value, b.path.siblings, b.path.directions)
+
+
+def test_base_zerocheck_on_the_card_matches_the_host_provers(cuda):
+    """ops/zerocheck_gen.py on the card, every round there (host tail 1),
+    against the numpy prover and the card's rounds down to the default tail."""
+    from zigz_tpu_torch.ops import zerocheck_gen
+    from zigz_tpu_torch.proofs.zerocheck import ZerocheckProver, make_zerocheck_prover
+
+    n = 1 << 13
+    rng = np.random.default_rng(12)
+    cols = {name: rng.integers(0, P, size=n, dtype=np.uint64) for name in ("a", "b", "g")}
+    cols["__sel__"] = rng.integers(0, 2, size=n, dtype=np.uint64)
+
+    def comb(c, alphas, p):
+        fp = (5 + p - (c["a"] + 7 * c["b"]) % p) % p
+        return (alphas[0] * ((c["g"] * fp + p - c["__sel__"]) % p) + alphas[1] * (c["__sel__"] * c["b"] % p)) % p
+
+    def run(prover):
+        transcript = FiatShamirTranscript()
+        proof = prover.prove(transcript)
+        return proof.round_evals, proof.final_point, proof.column_evals, transcript.challenge_value(P)
+
+    want = run(ZerocheckProver(BabyBear, cols, comb, 3, num_alphas=2))
+    zerocheck_gen.DEVICE_PROVES.update(count=0, sweep_launches=0)
+    assert run(make_zerocheck_prover(BabyBear, cols, comb, 3, num_alphas=2, device=cuda)) == want
+    assert run(zerocheck_gen.GenericDeviceZerocheck(BabyBear, cols, comb, 3, num_alphas=2, host_tail=1,
+                                                    device=cuda)) == want
+    assert zerocheck_gen.DEVICE_PROVES["count"] == 2 and zerocheck_gen.DEVICE_PROVES["sweep_launches"] > 0
+
+
 @pytest.mark.parametrize("name, tape", [("nop4", None), ("add", None), ("fibonacci", [10])])
 def test_prove_on_the_card_matches_the_fixture(cuda, name, tape):
     program = (FIXTURES / f"{name}_program.bin").read_bytes()

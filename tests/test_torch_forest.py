@@ -97,3 +97,99 @@ def test_forest_of_the_jax_witness_carried_in():
 def test_forest_rejects_bad_witness(lo):
     with pytest.raises(ValueError):
         DeviceMerkleForest(F, lo=lo)
+
+
+# -- the memory plan: levels freed, trees in groups ---------------------------
+# (B, N) = (5, 64): the level widths of the whole forest are 320, 160, 80, ...
+
+def _forced(monkeypatch, discard, group):
+    """The same thresholds on both packages (the JAX forest also folds its
+    top levels on the host below HOST_TOP_THRESHOLD)."""
+    from zigz_tpu.commitments import device_forest as jax_df
+    from zigz_tpu_torch.commitments import device_forest as port_df
+
+    for df in (jax_df, port_df):
+        monkeypatch.setattr(df, "DISCARD_DIGESTS", discard)
+        monkeypatch.setattr(df, "GROUP_LEAF_DIGESTS", group)
+    monkeypatch.setattr(jax_df, "HOST_TOP_THRESHOLD", 1 << 3)
+
+
+@pytest.mark.parametrize("hash_mode", ["sha3", "poseidon2"])
+@pytest.mark.parametrize(
+    "discard, group, want_freed, want_group",
+    [
+        (1 << 9, 1 << 7, 0, 2),  # nothing freed, groups of 2, 2 and 1 trees
+        (1 << 8, 1 << 7, 1, 2),  # the leaf level freed
+        (1 << 6, 1 << 7, 3, 2),  # levels 0..2 freed
+        (1 << 6, 1 << 9, 3, 5),  # freed, one group
+        (1, 1 << 6, 6, 1),  # every level but the roots freed, one tree a group
+    ],
+)
+def test_forest_memory_plan_matches_jax_and_host(monkeypatch, hash_mode, discard, group, want_freed, want_group):
+    _forced(monkeypatch, discard, group)
+    B, N = 5, 64
+    rng = np.random.default_rng(discard * 7 + group)
+    matrix = rng.integers(0, F.MODULUS, size=(B, N), dtype=np.uint64)
+    matrix[0, 0], matrix[-1, -1] = F.MODULUS - 1, 0
+    port = DeviceMerkleForest(F, lo=witness_dev.from_numpy(matrix.astype(np.uint32), "cpu"), hash_mode=hash_mode)
+    assert (port.discarded, port.group_trees) == (want_freed, want_group)
+    assert [lvl is None for lvl in port.levels] == [k < want_freed for k in range(7)]
+    plan = port.plan()
+    assert plan["groups"] == -(-B // want_group)
+    assert plan["kept_bytes"] == 32 * sum((B * N) >> k for k in range(want_freed, 7))
+    jax_forest = JaxForest(F, matrix, hash_mode=hash_mode)
+    roots = port.roots()
+    assert roots == jax_forest.roots()
+    # every leaf of tree 0 once, so that both directions occur at every level
+    for shift in (0, 21, 63):
+        indices = (np.arange(B) * 13 + shift) % N
+        openings = port.open_all(indices)
+        ref_openings = jax_forest.open_all(indices)
+        for i in range(B):
+            tree = SimpleMerkleTree.build(F, matrix[i], hash_mode)
+            assert roots[i] == tree.get_root()
+            for ref in (ref_openings[i], tree.open(int(indices[i]))):
+                assert openings[i].index == ref.index
+                assert openings[i].value.eql(ref.value)
+                assert openings[i].path.siblings == ref.path.siblings
+                assert openings[i].path.directions == ref.path.directions
+
+
+def test_shipped_plan_frees_nothing_up_to_2_22_steps():
+    """The thresholds as shipped: one group and every level kept at 43 x 2^22,
+    the leaf level freed at 2^23, groups of 16 trees and three levels freed at 2^25."""
+    from zigz_tpu_torch.commitments import device_forest as port_df
+
+    def plan(v):
+        total = 43 << v
+        grouped = total > port_df.GROUP_LEAF_DIGESTS
+        return (port_df._forest_plan(total, v, port_df.DISCARD_DIGESTS),
+                max(1, port_df.GROUP_LEAF_DIGESTS >> v) if grouped else 43)
+
+    assert [plan(v) for v in (16, 20, 22, 23, 24, 25)] == [(0, 43), (0, 43), (0, 43), (1, 43), (2, 32), (3, 16)]
+    assert port_df._forest_plan(43, 0, 1) == 0  # a one-leaf tree keeps its root
+
+
+@pytest.mark.parametrize("name, tape", [("fibonacci", [10]), ("add", None)])
+def test_v1_prove_under_a_forced_plan_equals_the_fixture(monkeypatch, name, tape):
+    """The whole v1 prove with levels freed and trees in groups: the golden bytes."""
+    import pathlib
+
+    import zigz_tpu_torch as zt
+    from zigz_tpu_torch.commitments import device_forest as port_df
+
+    monkeypatch.setattr(port_df, "DISCARD_DIGESTS", 1 << 4)
+    monkeypatch.setattr(port_df, "GROUP_LEAF_DIGESTS", 1 << 5)
+    fixtures = pathlib.Path(__file__).resolve().parent / "fixtures"
+    program = (fixtures / f"{name}_program.bin").read_bytes()
+    entry, segments = 0x1000, None
+    if zt.elf.is_elf(program):
+        loaded = zt.elf.load(program)
+        entry, segments = loaded.entry_pc, loaded.segments
+    prover = zt.Prover(zt.BabyBear, seed=0, device="cpu")
+    proof = prover.prove(program, entry, None, 1 << 16, segments, tape)
+    plan = prover.last_timings["forest_plan"]
+    assert plan["discarded_levels"] > 0 and plan["groups"] >= 3
+    data = zt.serialization.BinarySerializer(zt.BabyBear).serialize(proof)
+    assert data == (fixtures / f"{name}_v1.bin").read_bytes()
+    assert zt.Verifier(zt.BabyBear).verify(proof, program) == "Accept"

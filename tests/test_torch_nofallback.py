@@ -199,6 +199,26 @@ def test_zerocheck_trace_error_raises_on_a_device():
     assert transcript.finalize() == FiatShamirTranscript().finalize()
 
 
+def test_make_zerocheck_prover_raises_on_a_device_where_zigz_tpu_falls_back():
+    """``make_zerocheck_prover(device=...)`` hands an untraceable combiner's
+    TraceError to the caller (zigz_tpu's function swallows it and returns a
+    host prover); without a device the numpy prover takes such a combiner;
+    ``device="cuda"`` without a card raises."""
+    from zigz_tpu_torch.proofs.zerocheck import ZerocheckProver, make_zerocheck_prover
+
+    cols = {"x": np.arange(8, dtype=np.uint64)}
+
+    def base_untraceable(c, alphas, p):
+        return c["x"] % 7
+
+    with pytest.raises(TraceError, match="reduction by 7"):
+        make_zerocheck_prover(F, cols, base_untraceable, 2, num_alphas=1, device="cpu")
+    assert isinstance(make_zerocheck_prover(F, cols, base_untraceable, 2, num_alphas=1), ZerocheckProver)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_zerocheck_prover(F, cols, lambda c, alphas, p: c["x"], 2, num_alphas=1, device="cuda")
+
+
 @pytest.mark.parametrize("n", [2, 8, 1 << 13])
 def test_zerocheck_with_a_device_has_no_width_gate(n):
     zerocheck_dev_ext.reset_counters()

@@ -94,6 +94,18 @@ def test_witness_matches_jax_and_host(case):
     np.testing.assert_array_equal(port.numpy().view(np.uint32), jax_lo)
 
 
+@pytest.mark.parametrize("per_pass", [1, 4])
+@pytest.mark.parametrize("case", ["fibonacci", "initial_regs"])
+def test_register_fill_in_passes_matches_the_host(monkeypatch, case, per_pass):
+    """Long traces fill a few registers per pass to bound the int64
+    transients: the same witness as all 32 at once."""
+    trace = _native_trace(**CASES[case]())
+    host = WitnessGenerator.generate(F, trace)
+    monkeypatch.setattr(witness_dev, "_FILL_VALUES", per_pass << host.num_vars)
+    port = witness_dev.build_witness(trace, trace.initial_regs, host.num_vars, "cpu")
+    np.testing.assert_array_equal(port.numpy().astype(np.uint64), host.matrix)
+
+
 def test_negative_immediate_reduces_unsigned():
     trace = _native_trace(**_negative_immediate())
     num_vars = WitnessGenerator.generate(F, trace).num_vars

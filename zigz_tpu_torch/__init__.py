@@ -19,10 +19,42 @@ sumcheck rounds.  ``Prover`` runs on the card unless it is given
     assert zt.Verifier(zt.BabyBear).verify(proof, program) == "Accept"
 """
 
-from . import elf
-from .core.field import BabyBear
-from .prover import serialization
+from . import elf as elf
+from .core import field as field
+from .core.field import (
+    BabyBear,
+    F17,
+    Field,
+    Goldilocks,
+    KoalaBear,
+    Mersenne31,
+    Mersenne61,
+)
+from .core.hash import FiatShamirTranscript, SHA3Hasher
+from .core import xoshiro as xoshiro
+from .poly.multilinear import Multilinear
+from .poly.univariate import Univariate
+from .vm.state import VMState
+from .vm.memory import Memory
+from .vm.registers import RegisterFile
+from .vm.trace import ExecutionTrace
+from .constraints.witness import Witness, WitnessGenerator
+from .constraints.builder import ConstraintSystem
+from .proofs.sumcheck import SumcheckProof, SumcheckProver, SumcheckVerifier
+from .commitments.merkle import SimpleMerkleTree
+from .commitments.commit import CommitmentScheme
 from .prover.prover import Prover
+from .prover.proof import Proof, PublicIO, VerificationResult
+from .prover import serialization as serialization
 from .verifier.verifier import Verifier
 
-__all__ = ["Prover", "BabyBear", "Verifier", "serialization", "elf"]
+# The names zigz_tpu exports, from the port's own modules.
+__all__ = [
+    "BabyBear", "F17", "Field", "Goldilocks", "KoalaBear", "Mersenne31",
+    "Mersenne61", "FiatShamirTranscript", "SHA3Hasher", "Multilinear",
+    "Univariate", "elf", "VMState", "Memory", "RegisterFile",
+    "ExecutionTrace", "Witness", "WitnessGenerator", "ConstraintSystem",
+    "SumcheckProof", "SumcheckProver", "SumcheckVerifier",
+    "SimpleMerkleTree", "CommitmentScheme", "Prover", "Proof", "PublicIO",
+    "VerificationResult", "serialization", "Verifier", "field", "xoshiro",
+]

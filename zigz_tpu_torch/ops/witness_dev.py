@@ -29,6 +29,7 @@ __all__ = ["pack_trace_columns", "build_witness", "from_numpy", "NUM_ROWS"]
 
 NUM_ROWS = 43
 _C32_MOD_P = (1 << 32) % P
+_FILL_VALUES = 1 << 27  # int64 values per transient of the register forward fill
 _M32 = np.uint64(0xFFFFFFFF)
 _U32_COLUMNS = (
     "pc_lo", "pc_hi", "imm_lo", "wr_val_lo", "wr_val_hi",
@@ -125,12 +126,17 @@ def build_witness(trace, initial_regs, num_vars: int, device) -> torch.Tensor:
 
     # Registers: row r at step t holds the value of the last write to r at a
     # step <= t, or r's initial value when there was none; x0 is zero.
+    # A pass fills as many registers as keep its int64 transients at 2^27
+    # values (1 GiB) each: all 32 up to 2^22 steps, 4 at 2^25.
     steps = torch.arange(n, dtype=torch.int64, device=device)
-    regs = torch.arange(32, dtype=torch.int64, device=device)[:, None]
-    written_at = torch.where(d["wr_idx"][None, :] == regs, steps[None, :], -1)  # (32, n)
-    last = torch.cummax(written_at, dim=1).values
-    filled = torch.where(last >= 0, wr_val[last.clamp_min(0)], d["initial_regs"][:, None])
-    out[1:33] = filled
+    per_pass = max(1, min(32, _FILL_VALUES // n))
+    for r0 in range(0, 32, per_pass):
+        regs = torch.arange(r0, r0 + per_pass, dtype=torch.int64, device=device)[:, None]
+        written_at = torch.where(d["wr_idx"][None, :] == regs, steps[None, :], -1)  # (per_pass, n)
+        last = torch.cummax(written_at, dim=1).values
+        del written_at
+        out[1 + r0 : 1 + r0 + per_pass] = torch.where(
+            last >= 0, wr_val[last.clamp_min(0)], d["initial_regs"][r0 : r0 + per_pass, None])
     out[1] = 0
 
     for row, key in enumerate(("opcode", "rd", "rs1", "rs2", "funct3", "funct7"), start=33):

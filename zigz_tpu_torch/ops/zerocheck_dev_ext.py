@@ -73,7 +73,8 @@ def reset_counters() -> None:
 def _round_sums(dag, planes: torch.Tensor, degree: int):
     """g(0), g(2..degree) coordinate sums of eq * C over the current
     variable's half-split: ((degree, 4) canonical int64, DAG passes made).
-    g(1) follows from the sumcheck identity on the host.
+    g(1) follows from the sumcheck identity on the host.  A base-field DAG
+    (ops/zerocheck_gen.py) has one output and gives (degree, 1).
 
     The ``degree`` evaluation points are laid side by side along the width
     and go through the DAG in ONE pass: the sweep is bound by the number of
@@ -92,7 +93,7 @@ def _round_sums(dag, planes: torch.Tensor, degree: int):
                 points.append(cur)
         out = torch.stack(dag(torch.cat(points, dim=-1)))  # (4, degree * chunk)
         # a width below 2^32 sums below 2^63
-        part = out.view(4, len(points), -1).sum(dim=-1).t() % P
+        part = out.view(out.shape[0], len(points), -1).sum(dim=-1).t() % P
         total = part if total is None else (total + part) % P
         passes += 1
     return total, passes

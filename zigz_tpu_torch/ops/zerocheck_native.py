@@ -4,10 +4,11 @@ The host ZerocheckProver (proofs/zerocheck.py) evaluates its combiner as
 dozens of full-width single-threaded numpy temporaries; this twin traces
 the combiner once (ops/symtrace.py) and runs each round's sweeps through
 runtime/dag.cpp — chunk-resident intermediates across all cores.  It is
-the default host path for every logUp/constraint zerocheck when the
-native toolchain is available (dispatch in proofs/zerocheck.py
-make_zerocheck_prover); the numpy prover remains the reference twin and
-the fallback.
+the host path of the base-field zerocheck when the native toolchain is
+available (``make_zerocheck_prover(..., device=None)`` in
+proofs/zerocheck.py; with a device that function gives
+ops/zerocheck_gen.py instead); the numpy prover remains the reference twin
+and serves where the runtime did not build or the combiner does not trace.
 
 Round evaluations, challenges, terminal column evals, and transcript
 bytes are identical to the numpy prover's (tests/test_zerocheck_native.py):

@@ -36,6 +36,7 @@ __all__ = [
     "ZerocheckProof",
     "ZerocheckProver",
     "ZerocheckVerifier",
+    "make_zerocheck_prover",
     "ZerocheckExtProver",
     "ZerocheckExtVerifier",
     "eq_eval",
@@ -156,6 +157,33 @@ class ZerocheckProver:
             total += int((sl["__eq__"] * c_vals % P64).sum(dtype=np.uint64))
         return total % p
 
+    def round_values(self, tables: Dict[str, np.ndarray], alphas, claim: int, p: int) -> List[int]:
+        """g(0..degree) of one round over ``tables`` (the columns and
+        ``__eq__``, canonical uint64).  Also the host tail of the device
+        prover (ops/zerocheck_gen.py)."""
+        # g(0) from the lo-half slices; g(1) DERIVED from the sumcheck
+        # identity g(0) + g(1) = claim (skips one full combiner sweep
+        # per round); g(2..d) built incrementally from per-column
+        # deltas: at_t = at_{t-1} + (hi - lo)  == (1-t)*lo + t*hi mod p.
+        # All identical values to the direct evaluation, so the
+        # transcript and proof bytes are unchanged.
+        P64 = np.uint64(p)
+        at0 = {name: _eval_at_t(tab, 0, p) for name, tab in tables.items()}
+        g0 = self._combined_sum(at0, alphas, p)
+        evals_this_round = [g0, (claim - g0) % p]
+        if self.degree >= 2:
+            deltas = {
+                name: (tab[..., tab.shape[-1] // 2 :] + P64
+                       - tab[..., : tab.shape[-1] // 2]) % P64
+                for name, tab in tables.items()
+            }
+            cur = {name: _eval_at_t(tab, 1, p).copy() for name, tab in tables.items()}
+            for _t in range(2, self.degree + 1):
+                for name in cur:
+                    cur[name] = (cur[name] + deltas[name]) % P64
+                evals_this_round.append(self._combined_sum(cur, alphas, p))
+        return evals_this_round
+
     def prove(self, transcript: FiatShamirTranscript) -> ZerocheckProof:
         F = self.F
         p = F.MODULUS
@@ -176,29 +204,9 @@ class ZerocheckProver:
 
         round_evals: List[List[int]] = []
         rs: List[int] = []
-        P64 = np.uint64(p)
         claim = 0  # zerocheck total; updated to g(r) after each round
         for _ in range(num_vars):
-            # g(0) from the lo-half slices; g(1) DERIVED from the sumcheck
-            # identity g(0) + g(1) = claim (skips one full combiner sweep
-            # per round); g(2..d) built incrementally from per-column
-            # deltas: at_t = at_{t-1} + (hi - lo)  == (1-t)*lo + t*hi mod p.
-            # All identical values to the direct evaluation, so the
-            # transcript and proof bytes are unchanged.
-            at0 = {name: _eval_at_t(tab, 0, p) for name, tab in tables.items()}
-            g0 = self._combined_sum(at0, alphas, p)
-            evals_this_round = [g0, (claim - g0) % p]
-            if self.degree >= 2:
-                deltas = {
-                    name: (tab[..., tab.shape[-1] // 2 :] + P64
-                           - tab[..., : tab.shape[-1] // 2]) % P64
-                    for name, tab in tables.items()
-                }
-                cur = {name: _eval_at_t(tab, 1, p).copy() for name, tab in tables.items()}
-                for _t in range(2, self.degree + 1):
-                    for name in cur:
-                        cur[name] = (cur[name] + deltas[name]) % P64
-                    evals_this_round.append(self._combined_sum(cur, alphas, p))
+            evals_this_round = self.round_values(tables, alphas, claim, p)
             round_evals.append(evals_this_round)
 
             for g in evals_this_round:
@@ -225,6 +233,37 @@ class ZerocheckProver:
             final_point=rs,
             column_evals=column_evals,
         )
+
+
+def make_zerocheck_prover(F, columns: Dict[str, np.ndarray], combiner: Callable,
+                          degree: int, num_alphas: int = None, device=None):
+    """The base-field zerocheck prover for ``device``: a torch device (or
+    its name) gives the device prover (ops/zerocheck_gen.py), and whatever
+    fails there raises, a combiner that does not trace included; None gives
+    the host's native C++ prover (ops/zerocheck_native.py) when the runtime
+    built and the combiner traces, else the numpy prover.  All three emit
+    identical transcript bytes and proofs (tests/test_torch_zerocheck_gen.py).
+
+    zigz_tpu's function chooses by an environment variable, a width gate
+    and a bandwidth probe and swallows the device prover's failures; none
+    of that is carried over.  Like zigz_tpu's, it has no caller in the v2
+    to v4 pipelines, whose challenges are drawn from the extension field
+    (``ZerocheckExtProver``)."""
+    if device is not None:
+        from ..ops.zerocheck_gen import GenericDeviceZerocheck
+
+        return GenericDeviceZerocheck(F, columns, combiner, degree, num_alphas=num_alphas, device=device)
+    n = next(iter(columns.values())).shape[-1]
+    if F.MODULUS == 2013265921 and n >= 2:
+        from ..ops.symtrace import TraceError
+        from ..ops.zerocheck_native import NativeZerocheckProver, native_available
+
+        if native_available():
+            try:
+                return NativeZerocheckProver(F, columns, combiner, degree, num_alphas=num_alphas)
+            except TraceError:
+                pass  # the numpy prover evaluates any combiner
+    return ZerocheckProver(F, columns, combiner, degree, num_alphas=num_alphas)
 
 
 def _interp_eval(ys: List[int], x: int, p: int) -> int:

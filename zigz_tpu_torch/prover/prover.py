@@ -411,6 +411,7 @@ class Prover:
         forest = DeviceMerkleForest(self.F, lo=lo, hash_mode=self._hash_mode())
         synchronize(self.device)
         self.last_timings["forest_s"] = time.perf_counter() - t0
+        self.last_timings["forest_plan"] = forest.plan()
 
         # evals_s and opens_s are timed around calls that end in a
         # device-to-host copy, which waits for the device.
