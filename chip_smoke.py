@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's v1 to v4 provers, its forest's memory plan
-at 2^25 steps, its base-field device zerocheck and its standalone modules on
-one NVIDIA GPU and check them.
+at 2^25 steps, its base-field device zerocheck, its standalone modules and
+its sharded prover (two ranks sharing the card) on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py        (from the root of a checkout; needs one CUDA device)
 
@@ -31,8 +32,11 @@ the last line:
      ragged sizes 1, 255 and 4097 and the edge values 0, p - 1 and
      2^64 - 1; K5 on one full 544-row stream block at n_e = 2^19 (the
      2^20 v2 DATA commit's width) from a random carried state; K4 on
-     688 x 2^19 (``ligero_commit_device`` of the 43 witness MLEs at 2^20);
-     K4 and K5 (driven over the raw rows) at 1, 255 and 4097 columns times
+     the two column shards that a rank of two sponges in the sharded 2^20 v2
+     prove of phase 15, 2,540 x 2^18 (ADVICE, the entry of the kernel line)
+     and 2,089 x 2^18 (DATA), and on 688 x 2^19 (``ligero_commit_device`` of
+     the 43 witness MLEs at 2^20), each with its own times and bound; K4
+     and K5 (driven over the raw rows) at 1, 255 and 4097 columns times
      1, 33, 34, 543, 544 and 545 rows with the values 0 and p - 1.
      A hashlib check of a sample for every kernel, and the time of the
      Reed-Solomon encode of one 544-row block (torch ops, 2^16 -> 2^19).
@@ -117,13 +121,47 @@ the last line:
      ``LassoVerifier.verify_fast`` accepts; ``HostMerkleForest`` (one
      native call) roots and openings equal ``DeviceMerkleForest`` on the
      card at 43 x 2^12.
+ 14. the sharded prover's pieces on two ranks that share the card.  A rank
+     is this script started again with ``--rank`` (JAX and zigz_tpu blocked
+     there too), joined by ``torch.distributed`` with gloo as the transport
+     (NCCL refuses two ranks on one GPU), both on ``cuda:0``, every
+     collective staged through the host (zigz_tpu_torch/parallel/).  Each
+     The rank functions are those of tests/torch_group_checks.py.  Each
+     piece must equal its single-device result on both ranks:
+     ``DistSumcheckProver`` on 2^20 seeded values against the host
+     ``SumcheckProver``'s proof bytes; ``device_prove_step`` at (43, 2^20);
+     ``commit_columns_mesh`` at the 2^20 v2 DATA commit's shape (2,089 x
+     2^16, n_e = 2^19) against ``sha3_columns_stream``'s digest blob, K4
+     launched once on each rank, and ``MeshEncoded.gather`` of 64 columns
+     against ``StreamedEncoded.gather``; ``prove_rounds_mesh`` over tables of
+     20, 20, 18, 16 and 10 variables against the native rounds (rounds,
+     challenges, terminal evaluations, the transcript's next challenge); the
+     forest at (43, 2^16) under a forced plan.  Then one rank under
+     ``"nccl"``: every collective wrapper once on CUDA tensors.
+ 15. this slice's path at full width: ``Prover(BabyBear, device="cuda:0",
+     group=...)`` on the two ranks at 2^22 NOP steps (v1) and 2^20 NOP steps
+     (v2), each rank's proof equal to the pinned digest and verified Accept;
+     v2's ``data_commit_sharded``, ``advice_commit_sharded``,
+     ``batch_eval_sharded`` and ``open_sharded`` true and
+     ``zerochecks_sharded`` false, and the two commits' shapes those whose
+     column shards phase 2 held K4 to; per rank the K1/K2/K4/K5 launches (K1, K2
+     and, for v2, K4 > 0), the forest's plan, the phase timings and the peak
+     device memory.  Then a job whose rank 1 kills itself after
+     ``initialize``: the launcher must fail inside its timeout and leave no
+     result file, and the relaunch must give the pinned digest.  Two ranks
+     time-share one card: their figures are printed as what they are and
+     compared with nothing.
 
 The kernel launch counters are reset before each prove or commit and must
 be > 0 after it; the kernel line takes K1/K2's from phase 5
 (``launches_large`` beside them from the 2^25 prove of phase 11), K5's from the
 2^20 prove of phase 6 (``launches_v4`` beside it from phase 8) and K4's from
-phase 7; K3, the permutation inlined in all four, is listed with K2's
-measurements (one permutation per thread) and K1's plus K2's launches.  The last three lines are the
+rank 0 of the sharded 2^20 v2 prove of phase 15, the one prove that runs it
+(``launches_commit_device`` beside it from phase 7, ``other_shapes`` its
+measurements at the other two shapes of phase 2); K3, the permutation inlined in all four, is listed with K2's
+measurements (one permutation per thread) and K1's plus K2's launches; every
+entry carries the launches per rank of phase 15's two proves
+(``launches_group_v1_2_22``, ``launches_group_v2_2_20``).  The last three lines are the
 kernel JSON line, the card's nvidia-smi line and the result line
 {"ok": true, "device": {...}}.
 """
@@ -147,6 +185,8 @@ NOP = bytes([0x13, 0x00, 0x00, 0x00])
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES = 132 * 64  # SMs x INT32 lanes per SM and clock (Hopper white paper)
 V2_DATA_ROWS = 2089  # rows of the 2^20 v2 DATA commit, n = 2^16, n_e = 2^19
+V2_ADVICE_ROWS = 2540  # rows of its ADVICE commit, same n and n_e
+GROUP_KEYS = {"leaves": "K1", "merge": "K2", "columns": "K4", "absorb": "K5"}  # a rank's launch counts
 
 
 def log(msg: str) -> None:
@@ -155,6 +195,145 @@ def log(msg: str) -> None:
 
 def sha(data: bytes) -> str:
     return hashlib.sha256(data).hexdigest()
+
+
+def group_phases(pinned) -> dict:
+    """Phases 14 and 15; returns the per-rank kernel launches of the two
+    sharded proves, by pinned case."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from zigz_tpu_torch.parallel.launch import LaunchFailed, launch
+
+    # -- phases 14, 15: the sharded prover, two ranks sharing the card ------
+    # A rank is this script started again with --rank: jax and zigz_tpu are
+    # blocked there too, before the port is imported.  Both ranks name
+    # cuda:0 and use gloo as the transport (NCCL refuses two ranks on one
+    # GPU), so every collective is staged through the host.  The two ranks
+    # time-share the card: their figures are printed as what they are and
+    # compared with nothing.
+    rank_command = [sys.executable, os.path.abspath(__file__), "--rank"]
+    jobs_dir = tempfile.mkdtemp(prefix="chip_smoke_jobs_", dir=os.path.join(ROOT, "build"))
+    torch.cuda.empty_cache()
+
+    def on_two_ranks(function, spec, timeout_s):
+        results = launch(2, function, spec, work_dir=jobs_dir, device="cuda:0", backend="gloo",
+                         timeout_s=timeout_s, command=rank_command)
+        if [r["rank"] for r in results] != [0, 1] or any(r["device"] != "cuda:0" for r in results):
+            raise AssertionError(f"the ranks did not run on cuda:0: {[(r['rank'], r['device']) for r in results]}")
+        return results
+
+    t0 = time.perf_counter()
+    pieces = on_two_ranks("checks", {"checks": [
+        {"name": "wrappers", "kind": "wrappers", "seed": 14},
+        {"name": "dist_sumcheck 2^20", "kind": "dist_sumcheck", "seed": 14, "log2_n": 20},
+        {"name": "device_prove_step (43, 2^20)", "kind": "prove_step", "seed": 15, "B": 43, "v": 20},
+        {"name": f"commit_columns_mesh {V2_DATA_ROWS} x 2^16 -> 2^19", "kind": "commit", "seed": 16,
+         "rows": V2_DATA_ROWS, "n": 1 << 16, "n_e": 1 << 19, "n_gather": 64},
+        {"name": "prove_rounds_mesh 20, 20, 18, 16, 10 variables", "kind": "batch_eval", "seed": 17,
+         "log2_sizes": [20, 20, 18, 16, 10]},
+        {"name": "forest (43, 2^16) freed levels, three groups", "kind": "forest", "seed": 18, "B": 43, "v": 16,
+         "discard_digests": (43 << 16) >> 3, "group_leaf_digests": 16 << 15},
+    ]}, timeout_s=600)
+    for res in pieces:
+        for name, check in res["results"].items():
+            if name == "wrappers":
+                if not (check["rows_to_columns_ok"] and check["gather_cyclic_ok"] and check["gather_last_ok"]
+                        and check["all_reduce"] == [0, 3, 6, 9, 12, 15]
+                        and check["exchange_rows"] == [res["rank"], 100 + res["rank"]]):
+                    raise AssertionError(f"rank {res['rank']}: a collective wrapper gave a wrong result: {check}")
+            elif not check["equal_single"]:
+                raise AssertionError(f"rank {res['rank']}: {name} differs from the single-device result")
+            if name.startswith("commit_columns_mesh") and not (check["launches"]["K4"] == 1 and check["ok_predicate"]):
+                raise AssertionError(f"rank {res['rank']}: the sharded commit did not launch K4 once: {check}")
+            if name.startswith("prove_rounds_mesh") and not (check["sharded"] and check["mesh_rounds"] > 0):
+                raise AssertionError(f"rank {res['rank']}: the batch-eval rounds did not run sharded: {check}")
+            if name.startswith("forest") and (check["plan"]["discarded_levels"], check["plan"]["groups"]) != (3, 3):
+                raise AssertionError(f"rank {res['rank']}: the forced plan was not taken: {check['plan']}")
+    if len({json.dumps({n: c.get("sha256") for n, c in r["results"].items()}, sort_keys=True) for r in pieces}) != 1:
+        raise AssertionError("the two ranks' results differ")
+    log(f"phase 14 the group's pieces, 2 ranks on cuda:0 over gloo ({time.perf_counter() - t0:.1f} s with the "
+        f"ranks' start): every piece == its single-device result on both ranks; seconds on rank 0 (two ranks "
+        f"time-share the card): "
+        + "; ".join(f"{n} {c.get('seconds', c['check_s']):.3f}" for n, c in pieces[0]["results"].items())
+        + f"; collectives of the wrappers check {pieces[0]['results']['wrappers']['collectives']}")
+
+    # The "nccl" branch of the wrappers: a group of one rank on the card
+    # (two ranks cannot share a GPU under NCCL), every wrapper once on CUDA
+    # tensors handed to the collectives as they are.
+    nccl = launch(1, "checks", {"checks": [{"name": "wrappers", "kind": "wrappers", "seed": 14}]},
+                  work_dir=jobs_dir, device="cuda:0", backend="nccl", timeout_s=300, command=rank_command)
+    check = nccl[0]["results"]["wrappers"]
+    if not (check["rows_to_columns_ok"] and check["gather_cyclic_ok"] and check["gather_last_ok"]
+            and check["all_reduce"] == [0, 1, 2, 3, 4, 5] and check["exchange_rows"] == [0]
+            and check["collectives"] == {"all_reduce": 1, "all_gather": 3, "all_to_all": 2}):
+        raise AssertionError(f"the wrappers under a one-rank nccl group gave a wrong result: {check}")
+    log(f"phase 14 nccl: one rank on cuda:0, every wrapper once on CUDA tensors, collectives {check['collectives']}")
+
+    group_launches = {}
+    for name, version, timeout_s in (("v1-nop-2^22", 1, 600), ("v2-nop-2^20", 2, 900)):
+        case = pinned[name]
+        t0 = time.perf_counter()
+        ranks = on_two_ranks("prove", {"program": case["program"], "max_steps": case["max_steps"],
+                                       "protocol_version": version}, timeout_s=timeout_s)
+        for res in ranks:
+            got = (res["num_steps"], res["bytes"], res["sha256"], res["verify"])
+            want = (case["num_steps"], case["bytes"], case["sha256"], "Accept")
+            if got != want:
+                raise AssertionError(f"{name} on rank {res['rank']}: {got} differs from the pinned {want}")
+            counts, t = res["launches"], res["timings"]
+            if version == 1 and not (counts["K1"] > 0 and counts["K2"] > 0):
+                raise AssertionError(f"{name} on rank {res['rank']}: K1 or K2 was not launched: {counts}")
+            if version == 2:
+                if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K4"] > 0):
+                    raise AssertionError(f"{name} on rank {res['rank']}: K1, K2 or K4 was not launched: {counts}")
+                flags = {k: t.get(k) for k in ("data_commit_sharded", "advice_commit_sharded", "batch_eval_sharded",
+                                               "open_sharded", "zerochecks_sharded")}
+                if flags != {"data_commit_sharded": True, "advice_commit_sharded": True, "batch_eval_sharded": True,
+                             "open_sharded": True, "zerochecks_sharded": False}:
+                    raise AssertionError(f"{name} on rank {res['rank']}: what ran sharded: {flags}")
+                shapes = [list(t["data_commit_shape"]), list(t["advice_commit_shape"])]
+                if shapes != [[V2_DATA_ROWS, 1 << 16, 1 << 19], [V2_ADVICE_ROWS, 1 << 16, 1 << 19]]:
+                    raise AssertionError(f"{name} on rank {res['rank']}: the commits' (rows, n, n_e) {shapes} are "
+                                         f"not the shapes whose column shards phase 2 held K4 to")
+                if (t["data_commit_path"], t["advice_commit_path"]) != ("mesh", "mesh"):
+                    raise AssertionError(f"{name} on rank {res['rank']}: commit paths "
+                                         f"{t['data_commit_path']}, {t['advice_commit_path']}")
+            keys = [k for k in ("total_s", "execute_s", "witness_dev_s", "forest_s", "evals_s", "opens_s", "unified_s",
+                                "data_commit_s", "advice_commit_s", "zerochecks_s", "batch_eval_s", "open_s",
+                                "lasso_s", "forest_plan") if k in t]
+            log(f"phase 15 {name} on rank {res['rank']} of 2 sharing cuda:0: sha256 {res['sha256'][:16]} == pinned, "
+                f"{res['bytes']} B, Accept, launches {counts}, max_memory_allocated {res['max_memory_allocated']} B, "
+                f"max_memory_reserved {res['max_memory_reserved']} B, " + " ".join(f"{k}={t[k]}" for k in keys))
+        group_launches[name] = [res["launches"] for res in ranks]
+        log(f"phase 15 {name}: both ranks' proofs == the pinned digest ({time.perf_counter() - t0:.1f} s with the "
+            f"ranks' start)")
+
+    # A lost rank: rank 1 kills itself after initialize.  The launcher must
+    # fail within its timeout and leave no result; the relaunch must give
+    # the pinned digest.
+    case = pinned["v1-nop-2^16"]
+    spec = {"program": case["program"], "max_steps": case["max_steps"], "protocol_version": 1}
+    t0 = time.perf_counter()
+    try:
+        on_two_ranks("prove_lost_rank", dict(spec, lost_rank=1), timeout_s=120)
+    except LaunchFailed as failure:
+        failed_s = time.perf_counter() - t0
+        reason = str(failure).splitlines()[0]
+    else:
+        raise AssertionError("a job whose rank 1 killed itself did not fail")
+    left = [f for f in os.listdir(jobs_dir) if f.startswith("result_")]
+    if left or failed_s >= 120:
+        raise AssertionError(f"the failed job took {failed_s:.1f} s and left {left}")
+    ranks = on_two_ranks("prove", spec, timeout_s=300)
+    if {(r["sha256"], r["verify"]) for r in ranks} != {(case["sha256"], "Accept")}:
+        raise AssertionError("the relaunched job's proofs differ from the pinned digest")
+    log(f"phase 15 lost rank: the job failed in {failed_s:.1f} s ({reason}), no result file left; the relaunch "
+        f"gave sha256 {case['sha256'][:16]} == pinned on both ranks")
+    shutil.rmtree(jobs_dir, ignore_errors=True)
+    return group_launches
 
 
 def main() -> int:
@@ -336,16 +515,25 @@ def main() -> int:
         **bound(16 * n_e, n_e * (2 * 25 * 8 + 544 * 4)))  # the state read and written, the block read
     del state0, absorbed, scratch, block
 
-    mat = words(688, n_e)
-    columns_out = ligero_dev.sha3_columns(mat)
-    columns_err = byte_err(columns_out, ligero_dev._sha3_columns_plain(mat))
-    check_columns("K4", columns_out, mat, [0, 1, n_e - 1, *sample[:8].remainder(n_e).tolist()])
-    results["columns"] = dict(
-        max_abs_err=columns_err, shape=f"(688, {n_e}) -> ({n_e}, 4)",
-        ms=event_ms(ligero_dev.sha3_columns, mat, 10),
-        plain_ms=event_ms(ligero_dev._sha3_columns_plain, mat, 2),
-        **bound(ligero_dev.pad_words(688) // ligero_dev.RATE_WORDS * n_e, n_e * (688 * 4 + 32)))
-    del mat, columns_out
+    # K4 at the shapes its callers give it: the (rows, n_e / 2) column shard
+    # of each commit of the sharded 2^20 v2 prove on two ranks (phase 15),
+    # and ligero_commit_device's 688 x 2^19 (phase 7).
+    columns_err, columns_at = 0, {}
+    for key, r, n in (("columns", V2_ADVICE_ROWS, n_e // 2), ("columns_data_shard", V2_DATA_ROWS, n_e // 2),
+                      ("columns_commit_device", 688, n_e)):
+        mat = words(r, n)
+        columns_out = ligero_dev.sha3_columns(mat)
+        err_here = byte_err(columns_out, ligero_dev._sha3_columns_plain(mat))
+        check_columns(f"K4 ({r}, {n})", columns_out, mat, [0, 1, n - 1, *sample[:8].remainder(n).tolist()])
+        columns_at[key] = dict(
+            max_abs_err=err_here, shape=f"({r}, {n}) -> ({n}, 4)",
+            ms=event_ms(ligero_dev.sha3_columns, mat, 10),
+            plain_ms=event_ms(ligero_dev._sha3_columns_plain, mat, 2),
+            **bound(ligero_dev.pad_words(r) // ligero_dev.RATE_WORDS * n, n * (r * 4 + 32)))
+        columns_err = max(columns_err, err_here)
+        del mat, columns_out
+        torch.cuda.empty_cache()
+    results.update(columns_at)
 
     for n in (1, 255, 4097):
         for r in (1, 33, 34, 543, 544, 545):
@@ -354,7 +542,8 @@ def main() -> int:
             columns_err = max(columns_err, byte_err(ligero_dev.sha3_columns(mat), plain))
             absorb_err = max(absorb_err, byte_err(stream_raw(mat), plain))
             check_columns(f"K4/K5 ({r}, {n})", plain, mat, sorted({0, n - 1}))
-    results["columns"]["max_abs_err"] = columns_err
+    for key in columns_at:
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], columns_err)
     results["absorb"]["max_abs_err"] = absorb_err
     if columns_err or absorb_err:
         raise AssertionError(f"kernels disagree with their plain versions: K4 {columns_err}, K5 {absorb_err}")
@@ -506,11 +695,11 @@ def main() -> int:
     advice_seen = {}
     commit_mixed = unified.ligero_commit_mixed
 
-    def watched_commit(F_, columns, hash_mode="sha3", *, device, dev_columns=None):
+    def watched_commit(F_, columns, hash_mode="sha3", *, device, dev_columns=None, group=None):
         if dev_columns:
             advice_seen["planes"] = dict(dev_columns)
             advice_seen["host"] = columns
-        return commit_mixed(F_, columns, hash_mode, device=device, dev_columns=dev_columns)
+        return commit_mixed(F_, columns, hash_mode, device=device, dev_columns=dev_columns, group=group)
 
     unified.ligero_commit_mixed = watched_commit
     twin_events = {}
@@ -850,6 +1039,8 @@ def main() -> int:
         f"accepts, another table rejected ({wrong_table.reason}); HostMerkleForest 43 x 2^12 in "
         f"{host_forest_s:.3f} s: roots and 43 openings == DeviceMerkleForest on the card")
 
+    group_launches = group_phases(pinned)
+
     # -- the contract's lines ----------------------------------------------
     def entry_of(name, key, source, replaces, launches):
         r = results[key]
@@ -857,8 +1048,12 @@ def main() -> int:
                 "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
+                "shape": r["shape"],
                 "launches_v4": launches_at_2_20[4][key], "launches_v3": launches_at_2_20[3][key],
-                "launches_large": large_counts.get(key, 0)}
+                "launches_large": large_counts.get(key, 0),
+                # per rank, two ranks sharing the card (phase 15)
+                "launches_group_v1_2_22": [c[GROUP_KEYS[key]] for c in group_launches["v1-nop-2^22"]],
+                "launches_group_v2_2_20": [c[GROUP_KEYS[key]] for c in group_launches["v2-nop-2^20"]]}
 
     sha3_source = "zigz_tpu_torch/csrc/sha3_kernels.cu"
     ligero_source = "zigz_tpu_torch/csrc/ligero_kernels.cu"
@@ -869,15 +1064,21 @@ def main() -> int:
     permutation = dict(entry_of("keccak_f1600 (K3)", "merge", "zigz_tpu_torch/csrc/keccak.cuh",
                                 "zigz_tpu/ops/keccak_pallas.py:60", main_counts["leaves"] + main_counts["merge"]),
                        inlined_in=["K1", "K2", "K4", "K5"], measured_as="K2: one permutation per thread",
-                       launches_large=large_counts["leaves"] + large_counts["merge"])
+                       launches_large=large_counts["leaves"] + large_counts["merge"],
+                       **{f"launches_group_{tag}": [c["K1"] + c["K2"] for c in group_launches[name]]
+                          for tag, name in (("v1_2_22", "v1-nop-2^22"), ("v2_2_20", "v2-nop-2^20"))})
     kernels_line = {"kernels": [
         entry_of("sha3_leaves (K1)", "leaves", sha3_source, "zigz_tpu/ops/keccak_pallas.py:93",
                  main_counts["leaves"]),
         entry_of("sha3_merge (K2)", "merge", sha3_source, "zigz_tpu/ops/keccak_pallas.py:108",
                  main_counts["merge"]),
         permutation,
-        entry_of("sha3_columns (K4)", "columns", ligero_source, "zigz_tpu/ops/ligero_dev.py:45",
-                 columns_launches),
+        dict(entry_of("sha3_columns (K4)", "columns", ligero_source, "zigz_tpu/ops/ligero_dev.py:45",
+                      group_launches["v2-nop-2^20"][0]["K4"]),
+             launches_commit_device=columns_launches,
+             other_shapes=[{k: results[key][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                         "bound_by")}
+                           for key in ("columns_data_shard", "columns_commit_device")]),
         entry_of("sha3_absorb (K5)", "absorb", ligero_source, "zigz_tpu/ops/ligero_dev.py:256",
                  v2_counts["absorb"]),
     ]}
@@ -889,5 +1090,20 @@ def main() -> int:
     return 0
 
 
+def rank_main(argv) -> int:
+    """One rank of phases 14 and 15 (``--rank <job dir> <rank>``): the
+    port's worker with the rank functions of tests/torch_group_checks.py,
+    jax and zigz_tpu blocked as in the script itself."""
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    import torch_group_checks  # the rank functions of phases 14 and 15
+
+    torch_group_checks.worker_main(argv, torch_group_checks.FUNCTIONS)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "zigz_tpu") and sys.modules[m] is not None)
+    if loaded:
+        raise AssertionError(f"a rank imported {loaded}")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())

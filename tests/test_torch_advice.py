@@ -170,10 +170,10 @@ def _spy_on_advice_commit(monkeypatch):
     seen = []
     commit = unified.ligero_commit_mixed
 
-    def spy(F_, columns, hash_mode="sha3", *, device, dev_columns=None):
+    def spy(F_, columns, hash_mode="sha3", *, device, dev_columns=None, group=None):
         if dev_columns:
             seen.append((columns, dev_columns))
-        return commit(F_, columns, hash_mode, device=device, dev_columns=dev_columns)
+        return commit(F_, columns, hash_mode, device=device, dev_columns=dev_columns, group=group)
 
     monkeypatch.setattr(unified, "ligero_commit_mixed", spy)
     return seen

@@ -361,3 +361,68 @@ def test_device_ligero_state_opens_on_the_card(cuda):
     evals = ligero.ligero_column_evals(state, point)
     assert evals == ligero.ligero_column_evals(host, point)
     assert ligero.ligero_verify_eval(BabyBear, state.root, 10, names, evals, point, opened, FiatShamirTranscript())
+
+
+# -- the sharded prover: ranks that share the card ------------------------------
+
+GROUP_CHECKS = [
+    {"name": "wrappers", "kind": "wrappers", "seed": 1},
+    {"name": "sumcheck", "kind": "dist_sumcheck", "seed": 7, "log2_n": 12},
+    {"name": "step", "kind": "prove_step", "seed": 3, "B": 43, "v": 10},
+    {"name": "commit", "kind": "commit", "seed": 0, "rows": 601, "n": 1 << 10, "n_e": 1 << 13, "n_gather": 23},
+    {"name": "mixed", "kind": "mixed_commit", "seed": 2, "log2_sizes": [12, 11, 8]},
+    {"name": "batch_eval", "kind": "batch_eval", "seed": 3, "log2_sizes": [12, 12, 8, 6]},
+    {"name": "forest", "kind": "forest", "seed": 5, "B": 43, "v": 10,
+     "discard_digests": (43 << 10) >> 2, "group_leaf_digests": 16 << 9},
+    {"name": "lasso", "kind": "lasso_rounds", "seed": 9, "log2_n": 14},
+    {"name": "zerocheck", "kind": "zerocheck_gen", "seed": 11, "log2_n": 14},
+]
+
+
+def test_group_pieces_on_two_ranks_sharing_the_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0: every piece equals its single-device
+    result, the sharded commit launches K4 once, the forest K1 and K2."""
+    from torch_group_checks import launch_checks
+
+    results = launch_checks(2, GROUP_CHECKS, work_dir=str(tmp_path), device="cuda:0", backend="gloo", timeout_s=600)
+    for res in results:
+        assert res["device"] == "cuda:0"
+        checks = res["results"]
+        assert checks["wrappers"]["rows_to_columns_ok"] and checks["wrappers"]["gather_cyclic_ok"]
+        for name in GROUP_CHECKS[1:]:
+            assert checks[name["name"]]["equal_single"], name["name"]
+        assert checks["commit"]["launches"]["K4"] == 1 and checks["commit"]["launches"]["K5"] == 0
+        assert checks["mixed"]["commit_path"] == "mesh" and checks["mixed"]["verified"]
+        assert checks["batch_eval"]["sharded"] and checks["batch_eval"]["mesh_rounds"] > 0
+        assert (checks["forest"]["plan"]["discarded_levels"], checks["forest"]["plan"]["groups"]) == (2, 3)
+
+
+@pytest.mark.parametrize("version,name", [(1, "v1-nop-2^16"), (2, "v2-nop-2^16")])
+def test_group_prove_on_two_ranks_sharing_the_card(cuda, tmp_path, version, name):
+    from zigz_tpu_torch.parallel.launch import launch
+
+    case = PINNED[name]
+    results = launch(2, "prove", {"program": case["program"], "max_steps": case["max_steps"],
+                                  "protocol_version": version},
+                     work_dir=str(tmp_path), device="cuda:0", backend="gloo", timeout_s=600)
+    for res in results:
+        assert (res["num_steps"], res["bytes"], res["sha256"], res["verify"]) == (
+            case["num_steps"], case["bytes"], case["sha256"], "Accept")
+        assert res["launches"]["K1"] > 0 and res["launches"]["K2"] > 0
+        if version == 2:
+            t = res["timings"]
+            assert res["launches"]["K4"] == 2 and res["launches"]["K5"] == 0
+            assert t["data_commit_sharded"] and t["advice_commit_sharded"] and t["batch_eval_sharded"]
+            assert t["open_sharded"] and t["zerochecks_sharded"] is False
+
+
+def test_wrappers_under_a_one_rank_nccl_group(cuda, tmp_path):
+    """The "nccl" branch hands CUDA tensors to the collectives as they are."""
+    from torch_group_checks import launch_checks
+
+    res = launch_checks(1, [GROUP_CHECKS[0]], work_dir=str(tmp_path), device="cuda:0", backend="nccl",
+                        timeout_s=300)[0]["results"]["wrappers"]
+    assert res["rows_to_columns_ok"] and res["gather_cyclic_ok"] and res["gather_last_ok"]
+    assert res["all_reduce"] == [0, 1, 2, 3, 4, 5] and res["exchange_rows"] == [0]
+    assert res["collectives"] == {"all_reduce": 1, "all_gather": 3, "all_to_all": 2}
+

@@ -288,6 +288,107 @@ def test_a_failing_poseidon2_sponge_fails_the_commit_and_the_prove(monkeypatch):
         Prover(F, seed=0, device="cpu", protocol_version=3).prove(_NOPS, 0x1000, None, 64, None, None)
 
 
+# -- process groups (parallel/, the group paths) -------------------------------
+
+def test_a_cuda_group_raises_without_a_card(no_cuda, tmp_path):
+    from zigz_tpu_torch.parallel import multihost
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        multihost.single_process_group("cuda")
+    for backend in ("gloo", "nccl"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            multihost.initialize(backend, 0, 1, device="cuda:0", rendezvous_file=str(tmp_path / backend))
+    with pytest.raises(RuntimeError, match="has not been called"):
+        multihost.global_trace_group()  # nothing was initialised on the way
+
+
+def test_an_unknown_backend_raises(tmp_path):
+    from zigz_tpu_torch.parallel import multihost
+
+    for backend in ("mpi", "ucc", "", "GLOO"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            multihost.initialize(backend, 0, 1, device="cpu", rendezvous_file=str(tmp_path / "r"))
+        with pytest.raises(ValueError, match="unknown backend"):
+            multihost.TraceGroup(rank=0, world_size=1, device=torch.device("cpu"), backend=backend)
+
+
+def test_a_group_on_another_device_than_the_prover_raises():
+    from zigz_tpu_torch.commitments.device_forest import DeviceMerkleForest
+    from zigz_tpu_torch.parallel.dist import DistSumcheckProver
+    from zigz_tpu_torch.parallel.multihost import TraceGroup
+
+    elsewhere = TraceGroup(rank=0, world_size=1, device=torch.device("cuda", 0), backend="gloo")
+    with pytest.raises(ValueError, match="cuda:0"):
+        Prover(F, device="cpu", group=elsewhere)
+    with pytest.raises(ValueError, match="cuda:0"):
+        ligero_commit_mixed(F, {"a": np.arange(16, dtype=np.uint64)}, device="cpu", group=elsewhere)
+    with pytest.raises(ValueError, match="cuda:0"):
+        prove_unified(F, FiatShamirTranscript(), [], device="cpu", group=elsewhere)
+    with pytest.raises(ValueError, match="cuda:0"):
+        DistSumcheckProver(F, elsewhere, device="cpu")
+    with pytest.raises(ValueError, match="cuda:0"):
+        DeviceMerkleForest(F, lo=torch.zeros((2, 4), dtype=torch.int32), group=elsewhere)
+
+
+def test_a_group_commit_says_which_path_ran(monkeypatch):
+    """Under a group for which ``mesh_commit_ok`` is false the commit runs
+    whole and says "stream-dev"; the sharded path says "mesh" and holds a
+    ``MeshEncoded`` (tests/test_torch_ligero_mesh.py has it on real ranks).
+    Neither reports the other, and a sponge that fails under a group fails
+    the commit: it does not go back to the unsharded stream."""
+    from zigz_tpu_torch.ops import ligero_mesh
+    from zigz_tpu_torch.parallel.multihost import single_process_group
+
+    one = single_process_group("cpu")
+    cols = {"a": np.arange(1 << 8, dtype=np.uint64), "b": np.arange(1 << 6, dtype=np.uint64)}
+    plain = ligero_commit_mixed(F, cols, "sha3", device="cpu")
+    state = ligero_commit_mixed(F, cols, "sha3", device="cpu", group=one)
+    assert state.commit_path == "stream-dev" and isinstance(state.encoded, ligero_dev.StreamedEncoded)
+    assert state.root == plain.root and state.device_column("a") is not None
+    with pytest.raises(ValueError, match="device columns"):
+        ligero_commit_mixed(F, cols, "sha3", device="cpu", group=one,
+                            dev_columns={"a": torch.arange(1 << 8, dtype=torch.int32)})
+
+    # force the sharded path on the group of one: its collectives are identities
+    monkeypatch.setattr(ligero_mesh, "mesh_commit_ok", lambda group, n_e, rows: group is not None)
+    forced = ligero_commit_mixed(F, cols, "sha3", device="cpu", group=one)
+    assert forced.commit_path == "mesh" and isinstance(forced.encoded, ligero_mesh.MeshEncoded)
+    assert forced.root == plain.root and forced.leaf_digests == plain.leaf_digests
+    assert forced.device_column("a") is None  # the matrix is resident on no rank
+    with pytest.raises(RuntimeError, match="not resident"):
+        forced.device_column("a", required=True)
+    idx = [0, 5, forced.n_e - 1]
+    assert np.array_equal(forced.encoded.gather(idx), plain.encoded.gather(idx))
+
+    def boom(mat):
+        raise RuntimeError("forced failure in the column sponge")
+
+    monkeypatch.setattr(ligero_mesh, "sha3_columns", boom)
+    with pytest.raises(RuntimeError, match="forced failure in the column sponge"):
+        ligero_commit_mixed(F, cols, "sha3", device="cpu", group=one)
+    assert ligero_commit_mixed(F, cols, "sha3", device="cpu").commit_path == "stream-dev"
+
+
+def test_a_prove_under_a_group_of_one_reports_what_ran():
+    """A group of one shards nothing: the flags say so, the twins stay off,
+    and the proof bytes are those of ``group=None``."""
+    from zigz_tpu_torch.parallel.multihost import single_process_group
+    from zigz_tpu_torch.prover.serialization import BinarySerializer
+
+    one = single_process_group("cpu")
+    prover = Prover(F, seed=0, device="cpu", protocol_version=2, group=one)
+    proof = prover.prove(_NOPS, 0x1000, None, 64, None, None)
+    t = prover.last_timings
+    assert (t["data_commit_path"], t["advice_commit_path"]) == ("stream-dev", "stream-dev")
+    assert t["data_commit_sharded"] is False and t["advice_commit_sharded"] is False
+    assert t["batch_eval_sharded"] is False and t["open_sharded"] is False and t["zerochecks_sharded"] is False
+    assert "advice_dev_cols" not in t
+    plain = Prover(F, seed=0, device="cpu", protocol_version=2)
+    ser = BinarySerializer(F)
+    assert ser.serialize(proof) == ser.serialize(plain.prove(_NOPS, 0x1000, None, 64, None, None))
+    assert "data_commit_sharded" not in plain.last_timings and plain.last_timings["advice_dev_cols"] == 148
+
+
 def test_card_info_reports_without_a_card(no_cuda):
     info = card_info()
     assert info["cuda_available"] is False and info["device_count"] == 0

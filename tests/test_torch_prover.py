@@ -125,8 +125,11 @@ def test_cli_prove_writes_the_fixture_bytes(tmp_path, capsys):
     if not torch.cuda.is_available():  # the default device is the card: an error where there is none
         assert cli.main(["prove", str(program)]) == 1
         assert "cuda" in capsys.readouterr().err
-    assert cli.main(["prove", str(program), "--device", "cpu", "--supervise"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    # --supervise proves in a worker under the supervisor: the same bytes
+    supervised = tmp_path / "supervised.bin"
+    assert cli.main(["prove", str(program), "--device", "cpu", "--supervise", "--out", str(supervised)]) == 0
+    assert "steps 5 (supervised, restarts=0)" in capsys.readouterr().out
+    assert supervised.read_bytes() == (FIXTURES / "nop4_v1.bin").read_bytes()
 
 
 def test_cli_prove_v2_writes_zigz_tpu_bytes(tmp_path, capsys, monkeypatch):

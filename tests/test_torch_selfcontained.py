@@ -15,7 +15,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "zigz_tpu_torch"
 FIXTURES = ROOT / "tests" / "fixtures"
 FORBIDDEN = ("jax", "jaxlib", "zigz_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "__graft_entry_torch__.py",
+                                        ROOT / "scripts" / "torch_group_phases.py",
+                                        ROOT / "tests" / "torch_group_checks.py"]
 
 
 def _imports(path):
@@ -36,7 +38,11 @@ def test_sources_are_found():
             "zigz_tpu_torch/runtime/native_vm.py", "zigz_tpu_torch/ops/zerocheck_dev_ext.py",
             "zigz_tpu_torch/ops/advice_dev.py", "zigz_tpu_torch/ops/poseidon2.py",
             "zigz_tpu_torch/core/poseidon2.py", "zigz_tpu_torch/core/poseidon2_params.py",
-            "chip_smoke.py"} <= names
+            "zigz_tpu_torch/parallel/multihost.py", "zigz_tpu_torch/parallel/launch.py",
+            "zigz_tpu_torch/parallel/dist.py", "zigz_tpu_torch/parallel/recovery.py",
+            "zigz_tpu_torch/parallel/jobs.py", "zigz_tpu_torch/ops/ligero_mesh.py",
+            "zigz_tpu_torch/ops/batch_eval_dev.py", "__graft_entry_torch__.py",
+            "chip_smoke.py", "tests/torch_group_checks.py"} <= names
     assert not (PORT / "_jaxfree.py").exists()
 
 
@@ -44,6 +50,47 @@ def test_sources_are_found():
 def test_no_import_of_jax_or_the_jax_package(path):
     bad = [(line, mod) for line, mod in _imports(path) if mod.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path}: {bad}"
+
+
+def test_only_the_distributed_layer_calls_torch_distributed():
+    """Every collective goes through parallel/dist.py's wrappers, every
+    bring-up through parallel/multihost.py: no other file imports
+    ``torch.distributed`` or reaches it as an attribute of ``torch``."""
+    users = set()
+    for path in SOURCES:
+        text = path.read_text()
+        if any(mod.startswith("torch.distributed") for _line, mod in _imports(path)) or "torch.distributed." in \
+                text.replace("``torch.distributed``", ""):
+            users.add(path.relative_to(ROOT).as_posix())
+    assert users == {"zigz_tpu_torch/parallel/dist.py", "zigz_tpu_torch/parallel/multihost.py"}
+
+
+_BLOCKED_RANK = """
+import sys
+sys.modules["jax"] = None  # any import of these now raises ImportError
+sys.modules["jaxlib"] = None
+sys.modules["zigz_tpu"] = None
+from zigz_tpu_torch.parallel.launch import worker_main
+worker_main(sys.argv[1:])
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "zigz_tpu") and sys.modules[m])
+assert not loaded, loaded
+"""
+
+
+@pytest.mark.parametrize("version,name", [(1, "v1-nop-2^10"), (2, "v2-nop-2^10")])
+def test_ranks_prove_with_jax_and_zigz_tpu_blocked(tmp_path, version, name):
+    """Two ranks started by parallel/launch.py, each with JAX and zigz_tpu
+    blocked before the port is imported, prove to the pinned digest."""
+    from zigz_tpu_torch.parallel.launch import launch
+
+    case = json.loads((PORT / "testdata" / "proof_digests.json").read_text())["proofs"][name]
+    results = launch(2, "prove", {"program": case["program"], "max_steps": case["max_steps"],
+                                  "protocol_version": version},
+                     work_dir=str(tmp_path), device="cpu", timeout_s=600,
+                     command=[sys.executable, "-c", _BLOCKED_RANK])
+    for res in results:
+        assert (res["num_steps"], res["bytes"], res["sha256"], res["verify"]) == (
+            case["num_steps"], case["bytes"], case["sha256"], "Accept")
 
 
 def test_no_environment_switch_and_no_sys_modules_patch():

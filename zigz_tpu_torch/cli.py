@@ -13,8 +13,8 @@ takes the device its work runs on:
 
 ``--device`` defaults to ``cuda`` (the card; an error where there is none),
 ``--device cpu`` runs the kernels' plain versions.  ``--v2``, ``--v3`` and
-``--v4`` select the protocol version.  ``--supervise`` is not ported yet and
-exits non-zero.
+``--v4`` select the protocol version.  ``--supervise`` proves in a worker
+process under the supervisor of parallel/recovery.py.
 """
 
 from __future__ import annotations
@@ -42,7 +42,10 @@ USAGE = """zigz-tpu-torch — the zigz_tpu zkVM on PyTorch and CUDA (sumcheck + 
 
   python -m zigz_tpu_torch.cli prove <program.bin|program.elf> [--device cuda|cpu]
       [--entry 0x1000] [--max-steps N] [--out proof.bin] [--input v1,v2,...] [--v2|--v3|--v4]
+      [--supervise]
     Generate proof on the device (default cuda). ELF: entry and segments from file.
+    --supervise proves in a worker process under a supervisor (heartbeat
+    failure detection, deterministic restart);
     --v2 real constraint zerocheck, lookups and memory checks;
     --v3 adds Poseidon2 commitments;
     --v4 unified Ligero witness PCS (no per-column Merkle forest).
@@ -57,9 +60,6 @@ USAGE = """zigz-tpu-torch — the zigz_tpu zkVM on PyTorch and CUDA (sumcheck + 
     Build project (RISC-V ELF). Default path: current directory.
     Output: <path>/out/program (ELF for execute/prove).
 """
-
-_NOT_PORTED = ("--supervise",)
-
 
 def _parse_u64(args, flag, default):
     for i, arg in enumerate(args):
@@ -118,10 +118,6 @@ def cmd_prove(args) -> int:
         print("error: prove requires <program.bin|program.elf>", file=sys.stderr)
         print(USAGE)
         return 1
-    for flag in _NOT_PORTED:
-        if flag in args:
-            print(f"error: {flag} is not yet ported to zigz_tpu_torch", file=sys.stderr)
-            return 1
     device = _parse_str(args, "--device") or "cuda"
     program, elf_entry, segments = _load_program(args[0])
     entry_pc = elf_entry if elf_entry is not None else _parse_u64(args, "--entry", DEFAULT_ENTRY)
@@ -134,6 +130,37 @@ def cmd_prove(args) -> int:
     for flag, pv in (("--v2", 2), ("--v3", 3), ("--v4", 4)):
         if flag in args:
             protocol_version = pv
+    if "--supervise" in args:
+        # Fault-tolerant path: prove in a supervised worker process with
+        # heartbeat failure detection + deterministic restart
+        # (parallel/recovery.py).
+        import shutil
+        import tempfile
+
+        from .parallel.recovery import JobSupervisor, ProveJobSpec
+
+        job_dir = tempfile.mkdtemp(prefix="zigz_job_")
+        try:
+            spec = ProveJobSpec(
+                program=program, entry_pc=entry_pc, max_steps=max_steps,
+                input_tape=input_tape, protocol_version=protocol_version,
+                device=device,
+            )
+            t0 = time.perf_counter()
+            res = JobSupervisor(job_dir).run(spec)
+            prove_ms = (time.perf_counter() - t0) * 1000
+            if out_path:
+                shutil.copyfile(res.proof_path, out_path)
+            size = res.journal[-1]["bytes"]
+            print(f"prove: {prove_ms:.0f} ms, proof size {size} bytes, "
+                  f"steps {res.journal[-1]['num_steps']} "
+                  f"(supervised, restarts={res.restarts})")
+            if out_path:
+                print(f"wrote proof to {out_path}")
+            return 0
+        finally:
+            shutil.rmtree(job_dir, ignore_errors=True)
+
     prover = Prover(F, seed=0, device=device, protocol_version=protocol_version)
     t0 = time.perf_counter()
     proof = prover.prove(program, entry_pc, None, max_steps, segments, input_tape)

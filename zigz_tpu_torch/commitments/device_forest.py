@@ -31,6 +31,16 @@ level stays on the device (43 * (2^23 - 1) * 32 bytes, about 11.5 GB, at
 SimpleMerkleTree and to the JAX forest under every plan
 (tests/test_torch_forest.py).
 
+Under a ``group`` (parallel/multihost.py ``TraceGroup``) the leaf axis is
+cut CONTIGUOUSLY: rank r holds leaves ``[r * N/D, (r + 1) * N/D)`` of every
+tree, builds the subtrees over them (levels 0 .. height - log2 D, under the
+plan computed from the GLOBAL widths, in groups of trees sized by what the
+rank holds), the (B, 1) subtree roots are all-gathered, and the top log2 D
+levels are built from them on every rank.  A sibling below the subtree
+roots lives on the rank that owns the opened leaf, which also rebuilds a
+freed one; every rank contributes its own and zeros elsewhere and one
+all_reduce hands all of them to every rank.
+
 ``hash_mode="poseidon2"`` (protocol v3) builds the same trees with
 ops/poseidon2.py under the same plan: level k is then an (8, B, N >> k)
 int32 tensor of digest limbs, limb-major, whose (8, B * N >> k) view is
@@ -49,6 +59,7 @@ from .merkle import MerklePath, OpeningProof
 
 from ..ops import babybear as bb
 from ..ops import keccak, mle, poseidon2
+from ..parallel import dist
 
 __all__ = ["DeviceMerkleForest", "DISCARD_DIGESTS", "GROUP_LEAF_DIGESTS"]
 
@@ -87,7 +98,7 @@ def _forest_plan(total_leaf_digests: int, height: int, discard_digests: int) -> 
 class _Sha3Levels:
     """A level of G trees is a (G, n, 4) int64 tensor; kernels K1 and K2."""
 
-    tree_dim, words, word_type = 0, 4, "<i8"
+    tree_dim, node_dim, words, word_type = 0, 1, 4, "<i8"
 
     @staticmethod
     def leaves(values: torch.Tensor) -> torch.Tensor:
@@ -110,7 +121,7 @@ class _Sha3Levels:
 class _Poseidon2Levels:
     """A level of G trees is an (8, G, n) int32 tensor of limbs; torch ops."""
 
-    tree_dim, words, word_type = 1, 8, "<u4"
+    tree_dim, node_dim, words, word_type = 1, 2, 8, "<u4"
 
     @staticmethod
     def leaves(values: torch.Tensor) -> torch.Tensor:
@@ -134,8 +145,9 @@ _HASHERS = {"sha3": _Sha3Levels, "poseidon2": _Poseidon2Levels}
 
 
 class DeviceMerkleForest:
-    def __init__(self, F, lo: torch.Tensor, hash_mode: str = "sha3"):
-        """``lo``: (B, N) int32 canonical witness on the device, N = 2^height.
+    def __init__(self, F, lo: torch.Tensor, hash_mode: str = "sha3", group=None):
+        """``lo``: (B, N) int32 canonical witness on the device, N = 2^height;
+        under a ``group`` this rank's contiguous (B, N / D) slice of it.
 
         Builds the forest group by group: one K1 launch for a group's
         leaves, then one K2 launch per level (``"sha3"``), or ``p2_leaves``
@@ -145,32 +157,46 @@ class DeviceMerkleForest:
             raise ValueError(f"the port's field is BabyBear (p = {bb.P}), not {F.MODULUS}")
         if lo.dtype != torch.int32 or lo.dim() != 2:
             raise ValueError(f"expected a (B, N) int32 tensor, got {lo.dtype} {tuple(lo.shape)}")
-        B, N = lo.shape
-        if N <= 0 or N & (N - 1):
-            raise ValueError(f"leaf count {N} is not a power of two")
+        B, n_loc = lo.shape
+        ranks = dist.world_size(group)
+        if n_loc <= 0 or n_loc & (n_loc - 1):
+            raise ValueError(f"leaf count {n_loc} is not a power of two")
+        if ranks > 1 and n_loc < 2:
+            raise ValueError(f"a rank's slice of {n_loc} leaves cannot be sharded: it needs at least 2")
+        if group is not None and lo.device != group.device:
+            raise ValueError(f"witness on {lo.device}, group on {group.device}")
         if hash_mode not in _HASHERS:
             raise ValueError(f"unknown hash mode {hash_mode!r}")
+        N = n_loc * ranks
         self.F = F
         self.lo = lo
+        self.group = group
         self.B, self.N = B, N
         self.height = N.bit_length() - 1
+        # levels 0 .. local_height lie on the rank that owns the leaves
+        # (level local_height: this rank's subtree roots); the levels above
+        # are the same on every rank
+        self.local_height = n_loc.bit_length() - 1
         self.hash_mode = hash_mode
         self._hasher = _HASHERS[hash_mode]
-        self.discarded = _forest_plan(B * N, self.height, DISCARD_DIGESTS)
-        self.group_trees = B if B * N <= GROUP_LEAF_DIGESTS else max(1, GROUP_LEAF_DIGESTS // N)
+        self.discarded = min(_forest_plan(B * N, self.height, DISCARD_DIGESTS), self.local_height)
+        self.group_trees = B if B * n_loc <= GROUP_LEAF_DIGESTS else max(1, GROUP_LEAF_DIGESTS // n_loc)
         self.levels = self._build()
         self._root_bytes = self._hasher.to_bytes(self.levels[-1])
 
     def _build(self) -> list:
         """Levels D..height of all B trees.  A group's level is dropped when
         its parent exists, after a kept one was copied into its trees' slice
-        of the whole level; a single group's levels are kept as they are."""
+        of the whole level; a single group's levels are kept as they are.
+        Under a group of ranks the levels up to ``local_height`` cover this
+        rank's leaves, and the ones above come from the gathered subtree
+        roots."""
         B, D, hasher = self.B, self.discarded, self._hasher
         levels = [None] * (self.height + 1)
         for first in range(0, B, self.group_trees):
             trees = min(self.group_trees, B - first)
             level = hasher.leaves(self.lo[first : first + trees])
-            for k in range(self.height + 1):
+            for k in range(self.local_height + 1):
                 if k >= D and trees == B:
                     levels[k] = level
                 elif k >= D:
@@ -179,6 +205,14 @@ class DeviceMerkleForest:
                         shape[hasher.tree_dim] = B
                         levels[k] = level.new_empty(shape)
                     levels[k].narrow(hasher.tree_dim, first, trees).copy_(level)
+                if k < self.local_height:
+                    level = hasher.merge(level)
+        if self.local_height < self.height:
+            # (B, 1) subtree roots of every rank, in rank order: level
+            # local_height of the whole forest, then the top levels
+            level = dist.all_gather_cat(self.group, levels[self.local_height], hasher.node_dim)
+            for k in range(self.local_height, self.height + 1):
+                levels[k] = level
                 if k < self.height:
                     level = hasher.merge(level)
         return levels
@@ -190,6 +224,7 @@ class DeviceMerkleForest:
             "discarded_levels": self.discarded,
             "group_trees": self.group_trees,
             "groups": -(-self.B // self.group_trees),
+            "ranks": dist.world_size(self.group),
             "kept_bytes": sum(lvl.numel() * lvl.element_size() for lvl in kept),
         }
 
@@ -201,19 +236,26 @@ class DeviceMerkleForest:
         uint64, from the device-resident witness; ``matrix`` is ignored (the
         prover passes None).  Returns (B,) canonical uint64."""
         pts = torch.from_numpy(np.ascontiguousarray(points, dtype=np.uint64).view(np.int64))
+        pts = pts.to(self.lo.device)
         # The int32 witness goes in as it is: the first fold's products with
         # the int64 points promote to int64, and no int64 copy of it is made.
-        values = mle.batch_eval_lsb(self.lo, pts.to(self.lo.device))
+        # Under a group of ranks: the local folds down to one value a row,
+        # one all-gather of (B, D), the last log2 D folds on every rank.
+        v_loc = self.local_height
+        values = mle.batch_eval_lsb(self.lo, pts[:, :v_loc])
+        if v_loc < self.height:
+            tops = dist.all_gather_cat(self.group, values[:, None], 1)
+            values = mle.batch_eval_lsb(tops, pts[:, v_loc:])
         return values.cpu().numpy().astype(np.uint64)
 
-    def _recompute_siblings(self, k: int, nodes: torch.Tensor) -> torch.Tensor:
-        """Level k < D of B one-node "trees": node ``nodes[i]`` of tree i at
-        the freed level k is the root of the subtree over that tree's leaves
-        ``nodes[i] * 2^k .. (nodes[i] + 1) * 2^k - 1``, rebuilt from the
-        witness values with the same hashing as the freed digests."""
+    def _recompute_siblings(self, k: int, rows: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+        """Level k < D of one-node "trees": node ``nodes[i]`` of tree
+        ``rows[i]`` at the freed level k is the root of the subtree over that
+        tree's leaves ``nodes[i] * 2^k .. (nodes[i] + 1) * 2^k - 1``, rebuilt
+        from the witness values with the same hashing as the freed digests."""
         width = 1 << k
         leaves = (nodes * width)[:, None] + torch.arange(width, device=nodes.device)
-        level = self._hasher.leaves(torch.gather(self.lo, 1, leaves))
+        level = self._hasher.leaves(self.lo[rows[:, None], leaves])
         for _ in range(k):
             level = self._hasher.merge(level)
         return level
@@ -230,17 +272,35 @@ class DeviceMerkleForest:
             raise ValueError(f"expected {B} leaf indices in [0, {N})")
         device = self.lo.device
         shifts = np.arange(height, dtype=np.int64)[:, None]
-        sibling = torch.from_numpy((idx[None, :] >> shifts) ^ 1).to(device)  # (height, B)
-        rows = torch.arange(B, device=device)
-        first = torch.zeros(B, dtype=torch.int64, device=device)
-        parts = [
-            hasher.pick(self._recompute_siblings(k, sibling[k]), rows, first) if k < self.discarded
-            else hasher.pick(self.levels[k], rows, sibling[k])
-            for k in range(height)
-        ]
         words = hasher.words
-        parts.append(self.lo[rows, torch.from_numpy(idx).to(device)].to(torch.int64))
-        host = torch.cat(parts).cpu().numpy()
+        # Below local_height a sibling lies on the rank that owns the leaf,
+        # at the leaf's index within that rank's slice: a rank picks, and
+        # rebuilds the freed levels, only for the trees whose leaf it owns
+        # (all of them without a group) and contributes zeros for the rest.
+        h_loc = self.local_height
+        mine = np.flatnonzero(idx >> h_loc == (0 if self.group is None else self.group.rank))
+        idx_loc = idx[mine] & ((1 << h_loc) - 1)
+        rows = torch.from_numpy(mine).to(device)
+        low = torch.zeros((h_loc, B, words), dtype=torch.int64, device=device)
+        leaf = torch.zeros(B, dtype=torch.int64, device=device)
+        if len(mine):
+            sibling = torch.from_numpy((idx_loc[None, :] >> shifts[:h_loc]) ^ 1).to(device)  # (h_loc, owned)
+            own = torch.arange(len(mine), device=device)
+            for k in range(h_loc):
+                if k < self.discarded:
+                    picked = hasher.pick(self._recompute_siblings(k, rows, sibling[k]), own, torch.zeros_like(own))
+                else:
+                    picked = hasher.pick(self.levels[k], rows, sibling[k])
+                low[k, rows] = picked.view(-1, words)
+            leaf[rows] = self.lo[rows, torch.from_numpy(idx_loc).to(device)].to(torch.int64)
+        local = torch.cat([low.reshape(-1), leaf])
+        if h_loc < height:
+            local = dist.all_reduce_sum(self.group, local)  # x + 0 + .. + 0: exact for any word
+        trees = torch.arange(B, device=device)
+        top = torch.from_numpy((idx[None, :] >> shifts[h_loc:]) ^ 1).to(device)  # (height - h_loc, B)
+        tops = [hasher.pick(self.levels[k], trees, top[k - h_loc]) for k in range(h_loc, height)]
+        n_low = h_loc * B * words
+        host = torch.cat([local[:n_low]] + tops + [local[n_low:]]).cpu().numpy()
 
         sib = host[: height * B * words].reshape(height, B, words).astype(hasher.word_type)
         leaf_values = host[height * B * words :]

@@ -62,9 +62,10 @@ query-row vecmat on the host; ``state.encoded`` is a ``StreamedEncoded``,
 whose ``gather`` re-encodes on the device at open time and whose
 ``mat_dev`` feeds the zerochecks through ``device_column``.  The commit has
 no host encode or host hash, no way back to them, no size gate and no
-environment switch: ``commit_path`` is always ``"stream-dev"``.  Not
-carried over: the JAX branches, the width-packed upload
-(``_pack_rows_host``) and the mesh path.
+environment switch: ``commit_path`` is ``"stream-dev"``, or ``"mesh"`` for
+a SHA3 commit sharded over a process group (``group=``,
+ops/ligero_mesh.py).  Not carried over: the JAX branches and the
+width-packed upload (``_pack_rows_host``).
 """
 
 from __future__ import annotations
@@ -921,7 +922,8 @@ def _assemble_mat_dev(mat: np.ndarray, dev_columns: Dict[str, torch.Tensor], nam
 
 
 def ligero_commit_mixed(F, columns: Dict[str, np.ndarray], hash_mode: str = "sha3", *,
-                        device, dev_columns: Dict[str, torch.Tensor] = None) -> LigeroCommitState:
+                        device, dev_columns: Dict[str, torch.Tensor] = None,
+                        group=None) -> LigeroCommitState:
     """Commit power-of-two-length MLEs of heterogeneous sizes (name ->
     canonical values) under one column-Merkle root, on ``device``, with
     the default ``LigeroParams`` and one claim as the layout hint (what
@@ -940,7 +942,16 @@ def ligero_commit_mixed(F, columns: Dict[str, np.ndarray], hash_mode: str = "sha
     ``state.commit_timings`` holds ``assemble_s`` (the host matrix),
     ``upload_s`` (its u32 words host to device, or the stitch and the upload
     of the host-only rows), ``stream_s`` (encode + absorb) and ``levels_s``
-    (host Merkle levels), each read after a synchronize."""
+    (host Merkle levels), each read after a synchronize.
+
+    With a ``group`` (parallel/multihost.py ``TraceGroup``) a SHA3 commit for
+    which ``mesh_commit_ok`` holds runs sharded over the group's devices
+    (ops/ligero_mesh.py: rows cut by rank, one all_to_all per block, the
+    column sponge over each rank's columns), with the same root;
+    ``commit_path`` is then ``"mesh"`` and ``state.encoded`` a
+    ``MeshEncoded``.  A Poseidon2 commit, or one below that size, runs whole
+    on every rank (``"stream-dev"``).  Device columns cannot be placed into
+    a sharded matrix: ``dev_columns`` with a group is an error."""
     from ..ops.ligero_dev import StreamedEncoded
 
     if F.MODULUS != P:
@@ -948,6 +959,10 @@ def ligero_commit_mixed(F, columns: Dict[str, np.ndarray], hash_mode: str = "sha
     if hash_mode not in ("sha3", "poseidon2"):
         raise ValueError(f"unknown hash mode {hash_mode!r}")
     dev = resolve_device(device)
+    if group is not None and group.device != dev:
+        raise ValueError(f"group on {group.device}, commit on {dev}")
+    if group is not None and dev_columns:
+        raise ValueError("device columns cannot be placed into a commit under a group")
     params = LigeroParams()
     t0 = time.perf_counter()
     col_vars = {}
@@ -971,14 +986,25 @@ def ligero_commit_mixed(F, columns: Dict[str, np.ndarray], hash_mode: str = "sha
         else:
             mat[off, : len(arr)] = arr
     t1 = time.perf_counter()
-    if dev_columns:
+    sharded = False
+    if group is not None and hash_mode == "sha3":
+        from ..ops.ligero_mesh import MeshEncoded, commit_columns_mesh, mesh_commit_ok
+
+        sharded = mesh_commit_ok(group, n_e, total_rows)
+    if sharded:
+        rows = None
+    elif dev_columns:
         rows = _assemble_mat_dev(mat, dev_columns, names, offsets, heights, col_vars, dev)
     else:
         rows = torch.from_numpy(mat.astype(np.uint32).view(np.int32)).to(dev)
     synchronize(dev)
     t2 = time.perf_counter()
     # The copy of the digests to the host waits for the card.
-    if hash_mode == "poseidon2":
+    if sharded:
+        # upload_s is zero here: each rank uploads its rows inside stream_s
+        leaf_digests, mat_loc = commit_columns_mesh(group, mat.astype(np.uint32), n_e)
+        encoded = MeshEncoded(group, mat_loc, n_e, total_rows)
+    elif hash_mode == "poseidon2":
         from ..ops.poseidon2 import limbs_to_bytes, p2_columns_stream
 
         leaf_digests = limbs_to_bytes(p2_columns_stream(rows, n_e))
@@ -999,7 +1025,7 @@ def ligero_commit_mixed(F, columns: Dict[str, np.ndarray], hash_mode: str = "sha
         n=n,
         n_e=n_e,
         matrix=mat,
-        encoded=StreamedEncoded(rows, n_e),
+        encoded=encoded if sharded else StreamedEncoded(rows, n_e),
         leaf_digests=leaf_digests,
         levels=levels,
         hash_mode=hash_mode,
@@ -1007,7 +1033,7 @@ def ligero_commit_mixed(F, columns: Dict[str, np.ndarray], hash_mode: str = "sha
         offsets=offsets,
         heights=heights,
     )
-    state.commit_path = "stream-dev"
+    state.commit_path = "mesh" if sharded else "stream-dev"
     state.commit_timings = dict(assemble_s=t1 - t0, upload_s=t2 - t1, stream_s=t3 - t2, levels_s=t4 - t3)
     return state
 

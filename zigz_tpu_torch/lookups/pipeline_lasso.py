@@ -565,53 +565,40 @@ def _sumcheck_rounds_host(F, transcript, evals, claimed_sum):
     return rounds, point, F.from_reduced(int(cur[0]) if len(cur) else 0)
 
 
-def _sumcheck_rounds_device(F, transcript, evals, device, host_tail: int = None):
+def _sumcheck_rounds_device(F, transcript, evals, device, host_tail: int = None, group=None):
     """Device round loop (counterpart of zigz_tpu/lookups/pipeline_lasso.py
-    ``_sumcheck_rounds_device``): the table lies on ``device`` as canonical
-    int64, each round reads back its two half-sums and folds by the
-    challenge, the Fiat-Shamir transcript stays on the host, and the rounds
-    at or below ``host_tail`` width finish in the host loop.  Identical
-    outputs to the host loop (tests/test_torch_lasso.py)."""
-    import torch
+    ``_sumcheck_rounds_device``): the round loop of parallel/dist.py
+    ``sumcheck_rounds_msb`` with this protocol's three wire coefficients
+    (the third is zero) and its ``host_tail``.  The table lies on ``device``
+    as canonical int64, the Fiat-Shamir transcript stays on the host, and
+    the rounds at or below ``host_tail`` width finish on the host.  Identical
+    outputs to the host loop (tests/test_torch_lasso.py).
 
-    from ..ops.mle import fold_msb, round_poly_msb
+    Under a ``group`` (parallel/multihost.py ``TraceGroup``) a table wider
+    than the tail is cut cyclically over the ranks: the half sums and the
+    fold are local, one all_reduce a round carries the sums, and the tail,
+    never narrower than D, is all-gathered."""
+    from ..parallel import dist
 
-    p = F.MODULUS
-    host_tail = HOST_TAIL if host_tail is None else host_tail
-    num_vars = len(evals).bit_length() - 1
-    cur = torch.from_numpy(np.ascontiguousarray(evals, dtype=np.uint64).view(np.int64)).to(device)
-
-    rounds, point = [], []
-    done = 0
-    while done < num_vars and (len(evals) >> done) > host_tail:
-        g0, g1 = (int(g) for g in torch.stack(round_poly_msb(cur)).cpu())
-        coeffs = [F.from_reduced(g0), F.from_reduced((g1 - g0) % p), F.zero()]
-        rounds.append(coeffs)
-        for c in coeffs:
-            transcript.append_field_element(F, c)
-        r = transcript.challenge_value(p)
-        point.append(F.from_reduced(r))
-        cur = fold_msb(cur, r)
-        done += 1
+    rounds, point, final, done = dist.sumcheck_rounds_msb(
+        F, transcript, evals, device, group, HOST_TAIL if host_tail is None else host_tail, pad=(F.zero(),))
     DEVICE_ROUNDS["count"] += done
-
-    tail = cur.cpu().numpy().astype(np.uint64)
-    tail_rounds, tail_point, final = _sumcheck_rounds_host(F, transcript, tail, None)
-    return rounds + tail_rounds, point + tail_point, final
+    return rounds, point, final
 
 
 # Sumcheck rounds that ran on a torch device since the last reset.
 DEVICE_ROUNDS = {"count": 0}
 
 
-def prove_pipeline_lasso(F, transcript, queries_by_table, device=None, host_tail: int = None):
+def prove_pipeline_lasso(F, transcript, queries_by_table, device=None, host_tail: int = None, group=None):
     """Per-table real sumcheck over the hash-encoded query polynomial.
 
     Transcript schedule per table (ids ascending):
       "LASSO_TABLE" | F(table_id) | query commitment (32B) |
       F(claimed_sum) | per round: 3 wire coeffs -> challenge
     With a torch ``device`` the rounds of every table run there (no size
-    gate; BabyBear only); None runs the host loop.
+    gate; BabyBear only), sharded over ``group`` where one is given; None
+    runs the host loop.
     Returns (lookup_proofs, v2_lasso dict for the proof's v2 section)."""
     p = F.MODULUS
     # uint64 sums/products of canonical values are exact only for p < 2^31
@@ -638,7 +625,7 @@ def prove_pipeline_lasso(F, transcript, queries_by_table, device=None, host_tail
         if device is not None:
             if p != 2013265921:
                 raise ValueError(f"the device Lasso rounds are BabyBear-only, not p = {p}")
-            rounds, point, final_eval = _sumcheck_rounds_device(F, transcript, evals, device, host_tail)
+            rounds, point, final_eval = _sumcheck_rounds_device(F, transcript, evals, device, host_tail, group)
         else:
             rounds, point, final_eval = _sumcheck_rounds_host(F, transcript, evals, claimed_sum)
         sc = PipelineSumcheckProof(

@@ -25,7 +25,7 @@ import torch
 from ..device import resolve_device
 from .babybear import P
 
-__all__ = ["pack_trace_columns", "build_witness", "from_numpy", "NUM_ROWS"]
+__all__ = ["pack_trace_columns", "build_witness", "from_numpy", "check_slice_width", "NUM_ROWS"]
 
 NUM_ROWS = 43
 _C32_MOD_P = (1 << 32) % P
@@ -112,11 +112,44 @@ def _mod_u64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return (lo % P + (hi % P) * _C32_MOD_P) % P
 
 
-def build_witness(trace, initial_regs, num_vars: int, device) -> torch.Tensor:
-    """Native columnar trace -> (43, 2^v) int32 canonical witness on ``device``."""
+def _slice_columns(packed: dict, first: int, count: int) -> dict:
+    """The packed columns of steps ``first .. first + count`` as a trace of
+    their own: every per-step column is cut, and ``initial_regs`` becomes the
+    register file as it stands BEFORE step ``first`` (the value of the last
+    write to each register at an earlier step, else its initial value), so
+    the forward fill of the slice carries the right value into a register
+    that is never written inside it.  Computed from the host columns, which
+    every rank holds whole."""
+    out = {key: (arr if key == "initial_regs" else arr[first : first + count])
+           for key, arr in packed.items()}
+    regs = packed["initial_regs"].copy()
+    if first:
+        idx = packed["wr_idx"][:first]
+        for r in range(1, 32):
+            hits = np.flatnonzero(idx == r)
+            if hits.size:
+                t = int(hits[-1])
+                lo, hi = int(packed["wr_val_lo"][t]), int(packed["wr_val_hi"][t])
+                regs[r] = (lo + (hi << 32)) % P
+    out["initial_regs"] = regs
+    return out
+
+
+def build_witness(trace, initial_regs, num_vars: int, device, group=None) -> torch.Tensor:
+    """Native columnar trace -> (43, 2^v) int32 canonical witness on ``device``.
+
+    Under a ``group`` (parallel/multihost.py ``TraceGroup``) every rank
+    builds its CONTIGUOUS columns ``[rank * N/D, (rank + 1) * N/D)`` only and
+    returns that (43, N/D) slice; a slice of fewer than 2 steps raises."""
     device = resolve_device(device)
-    d = _upload(pack_trace_columns(trace, initial_regs, num_vars), device)
+    packed = pack_trace_columns(trace, initial_regs, num_vars)
     n = 1 << num_vars
+    if group is not None:
+        if group.device != device:
+            raise ValueError(f"group on {group.device}, witness on {device}")
+        n = check_slice_width(n, group.world_size)
+        packed = _slice_columns(packed, group.rank * n, n)
+    d = _upload(packed, device)
 
     imm_hi = (d["imm_lo"] >> 31) * 0xFFFFFFFF  # sign extension of bit 31
     wr_val = _mod_u64(d["wr_val_lo"], d["wr_val_hi"])
@@ -146,6 +179,15 @@ def build_witness(trace, initial_regs, num_vars: int, device) -> torch.Tensor:
     out[41] = _mod_u64(d["mem_val_lo"], d["mem_val_hi"])
     out[42] = d["mem_flag"] == 1
     return out
+
+
+def check_slice_width(n: int, world_size: int) -> int:
+    """N / D, the steps a rank holds; fewer than 2 cannot be sharded."""
+    per = n // world_size
+    if per < 2 or per * world_size != n:
+        raise ValueError(f"{n} steps over {world_size} ranks leave {n / world_size:g} a rank: "
+                         "a rank needs at least 2")
+    return per
 
 
 def from_numpy(lo_u32: np.ndarray, device) -> torch.Tensor:

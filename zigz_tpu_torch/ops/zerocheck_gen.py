@@ -13,6 +13,9 @@ prover with one output instead of four), and the rounds run on the device:
   points side by side (``zerocheck_dev_ext._round_sums``) - g(1) follows
   from the running claim as in the host prover - and one ``fold_msb`` of the
   whole stack;
+* under a ``group`` (parallel/multihost.py ``TraceGroup``) the stack is cut
+  cyclically over the ranks (parallel/dist.py) and each round's sums cross
+  them in one all_reduce;
 * below ``host_tail`` remaining width the tables come down once and the
   rounds finish with the ORIGINAL combiner in numpy
   (``ZerocheckProver.round_values``), the reference path for tiny shapes.
@@ -38,6 +41,7 @@ import torch
 
 from ..core.hash import FiatShamirTranscript
 from ..device import resolve_device
+from ..parallel import dist
 from .babybear import P
 from .mle import fold_msb
 from .symtrace import TraceError, compile_dag, trace_combiner
@@ -53,13 +57,14 @@ HOST_TAIL = 1 << 12
 DEVICE_PROVES = {"count": 0, "sweep_launches": 0}
 
 
-def eq_table_device(taus: List[int], n: int, device) -> torch.Tensor:
+def eq_table_device(taus: List[int], n: int, device, group=None) -> torch.Tensor:
     """(n,) canonical int64 eq(tau, .) over the hypercube, built on
     ``device``: bit v-1-j of the index selects tau_j, so tau_j belongs to
-    the MSB-first fold variable j (``proofs.zerocheck._eq_table``)."""
+    the MSB-first fold variable j (``proofs.zerocheck._eq_table``).  Under a
+    ``group`` this rank's cyclic (n / D,) slice, built from its own indices."""
     v = len(taus)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    acc = torch.ones(n, dtype=torch.int64, device=device)
+    idx = dist.shard_cyclic(group, torch.arange(n, dtype=torch.int64, device=device))
+    acc = torch.ones(idx.shape[0], dtype=torch.int64, device=device)
     for j, tau in enumerate(taus):
         tau %= P
         one_minus = (1 - tau) % P
@@ -75,15 +80,19 @@ class GenericDeviceZerocheck:
     transcript is touched."""
 
     def __init__(self, F, columns: Dict[str, np.ndarray], combiner, degree: int,
-                 num_alphas: int = None, host_tail: int = None, *, device):
+                 num_alphas: int = None, host_tail: int = None, *, device, group=None):
         if F.MODULUS != P:
             raise ValueError(f"the device zerocheck is BabyBear-only (p = {P}), not {F.MODULUS}")
         self.F = F
         self.device = resolve_device(device)
+        if group is not None and group.device != self.device:
+            raise ValueError(f"group on {group.device}, zerocheck on {self.device}")
+        self.group = group
         self.combiner = combiner
         self.degree = degree
         self.num_alphas = num_alphas if num_alphas is not None else len(columns)
-        self.host_tail = max(1, host_tail if host_tail is not None else HOST_TAIL)
+        # under a group the tail is never narrower than its D ranks
+        self.host_tail = max(dist.world_size(group), host_tail if host_tail is not None else HOST_TAIL)
 
         self.names = sorted(columns)
         n = columns[self.names[0]].shape[-1]
@@ -117,11 +126,17 @@ class GenericDeviceZerocheck:
             """eq * C, the zerocheck's summand: one more product and reduction."""
             return [(dag_c(planes)[0] * planes[eq_row]).remainder_(P)]
 
+        # Under a group a table wider than the tail is cut cyclically over
+        # the ranks: the half sums and the fold are local, the sums of a
+        # round are all-reduced, and the tail is all-gathered.
+        group = self.group if n > self.host_tail else None
+        sharded = dist.world_size(group) > 1
         stacked = np.stack([np.asarray(self.columns[name], dtype=np.uint64) % np.uint64(p)
                             for name in self.names]).astype(np.uint32)
-        planes = torch.empty((eq_row + 1, n), dtype=torch.int64, device=self.device)
+        stacked = np.ascontiguousarray(dist.shard_cyclic(group, stacked))
+        planes = torch.empty((eq_row + 1, stacked.shape[1]), dtype=torch.int64, device=self.device)
         planes[:eq_row] = torch.from_numpy(stacked.view(np.int32)).to(self.device)
-        planes[eq_row] = eq_table_device(taus, n, self.device)
+        planes[eq_row] = eq_table_device(taus, n, self.device, group)
 
         host = ZerocheckProver(self.F, self.columns, self.combiner, self.degree, num_alphas=self.num_alphas)
         round_evals: List[List[int]] = []
@@ -131,7 +146,7 @@ class GenericDeviceZerocheck:
         host_tables = None
         while len(rs) < num_vars:
             if host_tables is None and n >> len(rs) <= self.host_tail:
-                arr = planes.cpu().numpy().astype(np.uint64)
+                arr = dist.gather_cyclic(group, planes).cpu().numpy().astype(np.uint64)
                 host_tables = {name: arr[i] for i, name in enumerate(self.names)}
                 host_tables["__eq__"] = arr[eq_row]
             if host_tables is not None:
@@ -140,6 +155,8 @@ class GenericDeviceZerocheck:
                 sums, passes = _round_sums(dag, planes, self.degree)
                 if planes.device.type != "cpu":
                     launches += (dag_c.num_launches + 2) * passes
+                if sharded:
+                    sums = dist.all_reduce_sum(group, sums) % p
                 sums = [int(x) for x in sums[:, 0].cpu()]
                 evals_this_round = [sums[0], (claim - sums[0]) % p] + sums[1:]
             round_evals.append(evals_this_round)

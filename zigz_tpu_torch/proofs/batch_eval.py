@@ -190,9 +190,15 @@ def _native_round(stacked: np.ndarray, n_active: int, width: int,
 
 def prove_batch_eval(claims: List[BatchClaim],
                      columns: Dict[Tuple[str, str], np.ndarray],
-                     transcript) -> BatchEvalProof:
+                     transcript, group=None, timings: dict = None) -> BatchEvalProof:
     """``columns`` maps (commitment, column) to the committed base array.
-    Claim order is part of the protocol (both sides build the same list)."""
+    Claim order is part of the protocol (both sides build the same list).
+
+    With a ``group`` (parallel/multihost.py ``TraceGroup``) for which
+    ``mesh_rounds_ok`` holds, the round loop runs sharded over the group's
+    devices (ops/batch_eval_dev.py): the same round evaluations, their sums
+    all-reduced.  Without one, or below that size, the native C++ rounds
+    run on the host.  ``timings["batch_eval_sharded"]`` says which ran."""
     p = P
     assert claims, "batch-eval needs at least one claim"
     v_max = max(c.num_vars for c in claims)
@@ -257,7 +263,18 @@ def prove_batch_eval(claims: List[BatchClaim],
     round_evals: List[List[Ext4]] = []
     rs: List[Ext4] = []
     claim_running = combined_claim
-    native = _native_rounds_available()
+    mesh_ran = False
+    if group is not None:
+        from ..ops.batch_eval_dev import mesh_rounds_ok, prove_rounds_mesh
+
+        if mesh_rounds_ok(group, v_max):
+            round_evals, rs, claim_running = prove_rounds_mesh(
+                glist, v_max, combined_claim, transcript, group
+            )
+            mesh_ran = True
+    if timings is not None:
+        timings["batch_eval_sharded"] = mesh_ran
+    native = (not mesh_ran) and _native_rounds_available()
     one = ext_lift(1)
     stacked = None
     if native:
@@ -266,7 +283,7 @@ def prove_batch_eval(claims: List[BatchClaim],
         # on it in place; rows of not-yet-active groups hold garbage the
         # per-round DAG never reads).
         stacked = np.zeros((8 * len(glist), 1 << v_max), dtype=np.uint32)
-    for rnd in range(v_max):
+    for rnd in range(0 if mesh_ran else v_max):
         v_cur = v_max - rnd  # vars remaining INCLUDING this round's
         for gi, g in enumerate(glist):
             # Group activates this round: fold its accumulated pad scale

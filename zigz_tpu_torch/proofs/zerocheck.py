@@ -236,9 +236,10 @@ class ZerocheckProver:
 
 
 def make_zerocheck_prover(F, columns: Dict[str, np.ndarray], combiner: Callable,
-                          degree: int, num_alphas: int = None, device=None):
+                          degree: int, num_alphas: int = None, device=None, group=None):
     """The base-field zerocheck prover for ``device``: a torch device (or
-    its name) gives the device prover (ops/zerocheck_gen.py), and whatever
+    its name) gives the device prover (ops/zerocheck_gen.py), sharded over
+    ``group`` where one is given, and whatever
     fails there raises, a combiner that does not trace included; None gives
     the host's native C++ prover (ops/zerocheck_native.py) when the runtime
     built and the combiner traces, else the numpy prover.  All three emit
@@ -252,7 +253,10 @@ def make_zerocheck_prover(F, columns: Dict[str, np.ndarray], combiner: Callable,
     if device is not None:
         from ..ops.zerocheck_gen import GenericDeviceZerocheck
 
-        return GenericDeviceZerocheck(F, columns, combiner, degree, num_alphas=num_alphas, device=device)
+        return GenericDeviceZerocheck(F, columns, combiner, degree, num_alphas=num_alphas, device=device,
+                                      group=group)
+    if group is not None:
+        raise ValueError("a group needs a device: the host provers are not sharded")
     n = next(iter(columns.values())).shape[-1]
     if F.MODULUS == 2013265921 and n >= 2:
         from ..ops.symtrace import TraceError

@@ -33,7 +33,11 @@ v2 pipeline commits, runs its zerochecks and runs the Lasso rounds there
 (prover/unified.py, ops/zerocheck_dev_ext.py, lookups/pipeline_lasso.py).
 There is no size gate, no environment switch and no backend probe: the
 device paths run on the smallest traces too, and ``device="cpu"`` runs the
-same code with the kernels' plain PyTorch versions.  The transcript itself
+same code with the kernels' plain PyTorch versions.  ``group=`` (a
+``TraceGroup`` of parallel/multihost.py) shards that device work over the
+ranks of a process group, each rank one process, in place of the JAX
+package's ``mesh=``; every rank repeats the host phases and ends with the
+same proof bytes as the unsharded prove.  The transcript itself
 stays on the host: it is sequential, cheap, and consensus-critical.
 Protocol v3 is v2 with Poseidon2-over-BabyBear as the hash of the forest
 and of both Ligero commitments (ops/poseidon2.py, torch ops on the device);
@@ -60,6 +64,7 @@ from ..elf import Segment
 from ..isa.rv64i import InvalidInstruction
 from ..ops import babybear as bb
 from ..ops import witness_dev
+from ..parallel import dist
 from ..vm.state import VMState
 from .proof import CompactLassoList, Proof, PublicIO
 
@@ -73,7 +78,7 @@ class EmptyTrace(Exception):
 class Prover:
     """Prover(F) twin (prover.zig:27-561)."""
 
-    def __init__(self, F, *, device="cuda", seed: int = 0, verbose: bool = False,
+    def __init__(self, F, *, device="cuda", group=None, seed: int = 0, verbose: bool = False,
                  use_native_vm: Optional[bool] = None, protocol_version: int = 1):
         if protocol_version not in (1, 2, 3, 4):
             raise ValueError(f"protocol_version={protocol_version}: expected 1, 2, 3 or 4")
@@ -81,6 +86,14 @@ class Prover:
             raise ValueError(f"the port's field is BabyBear (p = {bb.P}), not {F.MODULUS}")
         self.F = F
         self.device = resolve_device(device)
+        # Optional process group (parallel/multihost.py TraceGroup): shards
+        # the hypercube-axis device work (witness build, Merkle forest,
+        # opening evaluations, the v2 commits, batch evaluation and Lasso
+        # rounds) over its ranks, with byte-identical proofs on every rank
+        # (tests/test_torch_group_prove.py).  None is the unsharded path.
+        if group is not None and group.device != self.device:
+            raise ValueError(f"the group's rank runs on {group.device}, the prover on {self.device}")
+        self.group = group
         self.rng = Xoshiro256(seed)
         self.transcript = FiatShamirTranscript()
         self.verbose = verbose
@@ -285,6 +298,7 @@ class Prover:
         unified = prove_unified(
             F, transcript, [core, validity, reg, mem, bc],
             self._hash_mode(), timings=self.last_timings, device=self.device,
+            group=self.group,
         )
         self.last_timings["unified_s"] = time.perf_counter() - t0
 
@@ -292,7 +306,8 @@ class Prover:
         # operand/result multisets (lookups/pipeline_lasso.py).
         transcript.append_bytes(b"LASSO_BEGIN")
         t0 = time.perf_counter()
-        lookup_proofs, extras = prove_pipeline_lasso(F, transcript, queries, device=self.device)
+        lookup_proofs, extras = prove_pipeline_lasso(F, transcript, queries, device=self.device,
+                                                      group=self.group)
         proof.lookup_proofs = lookup_proofs
         self.last_timings["lasso_s"] = time.perf_counter() - t0
 
@@ -401,14 +416,19 @@ class Prover:
         t0 = time.perf_counter()
         trace = witness._trace
         if hasattr(trace, "columns"):
-            lo = witness_dev.build_witness(trace, trace.initial_regs, witness.num_vars, self.device)
-        else:  # the Python interpreter's trace: upload the host matrix
-            lo = witness_dev.from_numpy(witness.matrix.astype(np.uint32), self.device)
+            lo = witness_dev.build_witness(trace, trace.initial_regs, witness.num_vars, self.device,
+                                           group=self.group)
+        else:  # the Python interpreter's trace: upload the host matrix, or this rank's columns of it
+            matrix = witness.matrix
+            if self.group is not None:
+                witness_dev.check_slice_width(matrix.shape[1], self.group.world_size)
+                matrix = np.ascontiguousarray(dist.shard_rows(self.group, matrix))
+            lo = witness_dev.from_numpy(matrix.astype(np.uint32), self.device)
         synchronize(self.device)
         self.last_timings["witness_dev_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        forest = DeviceMerkleForest(self.F, lo=lo, hash_mode=self._hash_mode())
+        forest = DeviceMerkleForest(self.F, lo=lo, hash_mode=self._hash_mode(), group=self.group)
         synchronize(self.device)
         self.last_timings["forest_s"] = time.perf_counter() - t0
         self.last_timings["forest_plan"] = forest.plan()

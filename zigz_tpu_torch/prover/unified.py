@@ -45,7 +45,13 @@ the committed columns from the resident matrices.  The transcript
 schedule and the ``timings`` keys are the JAX package's.  The arguments'
 ``device_advice`` hooks rebuild their ADVICE columns on the device
 (ops/advice_dev.py) for the advice commit; ``advice_dev_s`` and
-``advice_dev_cols`` time and count them.  Not ported: the mesh path.
+``advice_dev_cols`` time and count them.  With a ``group``
+(parallel/multihost.py ``TraceGroup``) the two commits and the batch
+evaluation run sharded over its ranks where their size predicates hold
+(``*_commit_sharded``, ``batch_eval_sharded``, ``open_sharded`` in
+``timings`` say what ran); the device advice twins are then off, and the
+extension zerochecks run whole on every rank (``zerochecks_sharded`` is
+False), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -114,20 +120,28 @@ def _namespace(arg, cols: Dict[str, np.ndarray], commit_key: str,
         full[fn] = arr
 
 
-def _commit(F, key: str, columns, hash_mode, device, timings, dev_columns=None) -> LigeroCommitState:
+def _commit(F, key: str, columns, hash_mode, device, timings, dev_columns=None, group=None) -> LigeroCommitState:
     t0 = time.perf_counter()
-    state = ligero_commit_mixed(F, columns, hash_mode, device=device, dev_columns=dev_columns)
+    state = ligero_commit_mixed(F, columns, hash_mode, device=device, dev_columns=dev_columns, group=group)
     if timings is not None:
         timings[f"{key}_commit_s"] = time.perf_counter() - t0
         timings[f"{key}_commit_path"] = state.commit_path
+        if group is not None:
+            timings[f"{key}_commit_sharded"] = state.commit_path == "mesh"
         timings[f"{key}_commit_shape"] = (state.matrix.shape[0], state.n, state.n_e)  # total_rows, n, n_e
         timings.update({f"{key}_{name}": seconds for name, seconds in state.commit_timings.items()})
     return state
 
 
 def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
-                  timings: Optional[dict] = None, *, device) -> UnifiedProof:
+                  timings: Optional[dict] = None, *, device, group=None) -> UnifiedProof:
+    """With a ``group`` the DATA and ADVICE commits (commitments/ligero.py,
+    ops/ligero_mesh.py) and the batch-evaluation rounds
+    (ops/batch_eval_dev.py) run sharded over its ranks; the proof bytes are
+    those of the unsharded path."""
     device = resolve_device(device)
+    if group is not None and group.device != device:
+        raise ValueError(f"group on {group.device}, prove on {device}")
     data_full: Dict[str, np.ndarray] = {}
     for a in args:
         a.locmap = getattr(a, "locmap", {})
@@ -135,7 +149,7 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
 
     data_state = None
     if data_full:
-        data_state = _commit(F, "data", data_full, hash_mode, device, timings)
+        data_state = _commit(F, "data", data_full, hash_mode, device, timings, group=group)
         transcript.append_bytes(b"V2_DATA")
         transcript.append_bytes(data_state.root)
 
@@ -153,9 +167,11 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
     # the transcript sums, the batch evaluation and the openings' host
     # matrix; bit-equality of the twins is guaranteed by exact mod-p
     # arithmetic (tests/test_torch_advice.py).  A twin that fails makes
-    # the prove fail: there is no way back to the host upload.
+    # the prove fail: there is no way back to the host upload.  Under a
+    # group the twins are off and the advice rows upload from the host: no
+    # rank holds the whole DATA matrix they would read.
     advice_dev: Dict[str, object] = {}
-    if data_state is not None and advice_full:
+    if group is None and data_state is not None and advice_full:
         t0 = time.perf_counter()
         for a in args:
             build = getattr(a, "device_advice", None)
@@ -171,7 +187,7 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
     advice_state = None
     if advice_full:
         advice_state = _commit(F, "advice", advice_full, hash_mode, device, timings,
-                               dev_columns=advice_dev or None)
+                               dev_columns=advice_dev or None, group=group)
         del advice_dev
         transcript.append_bytes(b"V2_ADVICE")
         transcript.append_bytes(advice_state.root)
@@ -186,6 +202,8 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
         a.zerocheck_phase(transcript, sink)
     if timings is not None:
         timings["zerochecks_s"] = time.perf_counter() - t0
+        if group is not None:
+            timings["zerochecks_sharded"] = False  # no group reaches the extension zerochecks
 
     batch = None
     opened = {"data": None, "advice": None}
@@ -193,7 +211,8 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
         columns = {("data", fn): arr for fn, arr in data_full.items()}
         columns.update({("advice", fn): arr for fn, arr in advice_full.items()})
         t0 = time.perf_counter()
-        batch = prove_batch_eval(sink.claims, columns, transcript)
+        batch = prove_batch_eval(sink.claims, columns, transcript, group=group,
+                                 timings=timings if group is not None else None)
         if timings is not None:
             timings["batch_eval_s"] = time.perf_counter() - t0
         rho = batch.final_point
@@ -209,6 +228,10 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
         synchronize(device)
         if timings is not None:
             timings["open_s"] = time.perf_counter() - t0
+            if group is not None:
+                timings["open_sharded"] = any(
+                    opened[key] is not None and state.commit_path == "mesh"
+                    for key, state in states.items() if state is not None)
 
     return UnifiedProof(
         data_root=data_state.root if data_state is not None else None,
