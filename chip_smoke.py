@@ -55,6 +55,20 @@ the last line:
      2^20 proves.  The three advice twins are held against the host
      advice columns of every v2, v3 and v4 prove below, plane by plane,
      after that prove has returned (its timings carry none of the check).
+  2b. the bench's multiply-chain kernel (csrc/field_kernels.cu, the
+     headline of bench_torch.py; no TPU counterpart): ``babybear.mul_chain``
+     against ``_mul_chain_plain`` on the card at 2^22 elements and at the
+     ragged sizes 1, 255 and 4097, with 0, 1 and p - 1 among x and y, byte
+     error 0; kernel and plain times by CUDA events around 20 reps queued
+     behind a spin (``bench_torch.queued_event_ms``: a rep is shorter than
+     its launch from Python); its bound from the
+     integer instructions of its SASS (each thread takes one element, so
+     every instruction runs once an element) over 132 SMs x 64 INT32 lanes
+     x the SM clock, against 12 B an element over 3.35 TB/s.  No PyTorch
+     call fuses the chain (``library_ms`` null).  Then this slice's path:
+     ``bench_torch.main`` at v1 2^14 and 2^18 only (headline at 2^22 lanes,
+     the host anchor, the two ladder sizes pinned for the bench), its last
+     line parsed, the kernel's launches counted over that run.
   3. the port's v1 proof bytes equal tests/fixtures/{nop4,add,fibonacci}_v1.bin.
   4. at 2^16 and 2^20 NOP steps and for the fibonacci guest (900,013
      steps), the port's v1 proof equals its pinned digest and verifies
@@ -161,13 +175,15 @@ rank 0 of the sharded 2^20 v2 prove of phase 15, the one prove that runs it
 measurements at the other two shapes of phase 2); K3, the permutation inlined in all four, is listed with K2's
 measurements (one permutation per thread) and K1's plus K2's launches; every
 entry carries the launches per rank of phase 15's two proves
-(``launches_group_v1_2_22``, ``launches_group_v2_2_20``).  The last three lines are the
+(``launches_group_v1_2_22``, ``launches_group_v2_2_20``).  The multiply-chain kernel's entry takes its
+launches from the bench run of phase 2b.  The last three lines are the
 kernel JSON line, the card's nvidia-smi line and the result line
 {"ok": true, "device": {...}}.
 """
 
 import contextlib
 import hashlib
+import io
 import json
 import os
 import re
@@ -184,6 +200,8 @@ P = 2013265921
 NOP = bytes([0x13, 0x00, 0x00, 0x00])
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES = 132 * 64  # SMs x INT32 lanes per SM and clock (Hopper white paper)
+INT_OPCODES = ("LOP3", "SHF", "IADD3", "IADD", "VIADD", "IMAD", "LEA", "PRMT", "MOV", "ISETP", "SEL", "IMNMX")
+SASS_OPCODE = r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*)"
 V2_DATA_ROWS = 2089  # rows of the 2^20 v2 DATA commit, n = 2^16, n_e = 2^19
 V2_ADVICE_ROWS = 2540  # rows of its ADVICE commit, same n and n_e
 GROUP_KEYS = {"leaves": "K1", "merge": "K2", "columns": "K4", "absorb": "K5"}  # a rank's launch counts
@@ -356,8 +374,8 @@ def main() -> int:
     from zigz_tpu_torch.core.hash import FiatShamirTranscript
     from zigz_tpu_torch.lookups import lasso, pipeline_lasso
     from zigz_tpu_torch.lookups.table_builder import build_xor_table
-    from zigz_tpu_torch.ops import (_build, advice_dev, keccak, ligero_dev, ntt_dev, poseidon2, witness_dev,
-                                    zerocheck_dev_ext, zerocheck_gen)
+    from zigz_tpu_torch.ops import (_build, advice_dev, babybear, keccak, ligero_dev, ntt_dev, poseidon2,
+                                    witness_dev, zerocheck_dev_ext, zerocheck_gen)
     from zigz_tpu_torch.ops.zerocheck_native import NativeZerocheckProver
     from zigz_tpu_torch.prover import prover as prover_module
     from zigz_tpu_torch.prover import unified
@@ -399,19 +417,33 @@ def main() -> int:
     # straight-line kernel: one full-state permutation per thread).
     cuobjdump = os.path.join(os.path.dirname(info["nvcc"]), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", kernels.path], capture_output=True, text=True, check=True).stdout
-    merge_sass = next(part for part in sass.split("Function :")[1:] if "sha3_merge" in part.splitlines()[0])
-    opcodes = re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*)", merge_sass, flags=re.M)
+    def function_opcodes(name):
+        part = next(part for part in sass.split("Function :")[1:] if name in part.splitlines()[0])
+        return re.findall(SASS_OPCODE, part, flags=re.M)
+
+    opcodes = function_opcodes("sha3_merge")
     perm_instr = sum(1 for op in opcodes if op in ("LOP3", "SHF", "IADD3", "IMAD", "LEA", "PRMT", "MOV"))
     if not 1000 < perm_instr < 20000:
         raise AssertionError(f"implausible instruction count {perm_instr} for Keccak-f in K2's SASS ({len(opcodes)} in all)")
     log(f"phase 1 sass: K2 has {len(opcodes)} instructions, {perm_instr} of them integer ALU "
         f"({ {op: opcodes.count(op) for op in sorted(set(opcodes))} })")
 
-    def bound(perms: int, nbytes: int) -> dict:
+    # The multiply-chain kernel's: every integer instruction of the function,
+    # since each thread takes one element and runs each once.
+    chain_opcodes = function_opcodes("field_mul_chain")
+    chain_instr = sum(1 for op in chain_opcodes if op in INT_OPCODES)
+    if not 50 < chain_instr < 400:
+        raise AssertionError(f"implausible instruction count {chain_instr} in the multiply chain's SASS "
+                             f"({len(chain_opcodes)} in all)")
+    log(f"phase 1 sass: field_mul_chain has {len(chain_opcodes)} instructions, {chain_instr} of them integer ALU "
+        f"({ {op: chain_opcodes.count(op) for op in sorted(set(chain_opcodes))} })")
+
+    def bound(units: int, nbytes: int, instr_each: int = perm_instr) -> dict:
         """The least time the card could take: bytes over the memory rate, or
-        permutations x instructions over the INT32 issue rate at the maximum clock."""
+        units (permutations by default) x their integer instructions over the
+        INT32 instruction rate at the maximum clock."""
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = perms * perm_instr / (INT32_LANES * max_sm_mhz * 1e6) * 1e3
+        ops_ms = units * instr_each / (INT32_LANES * max_sm_mhz * 1e6) * 1e3
         return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                     library_ms=None)
 
@@ -607,6 +639,53 @@ def main() -> int:
         log(f"phase 2 torch op {name}: {torch_ops[name]['ms']} ms, {torch_ops[name]['launches']} launches")
     del coeffs, enc_block, leaf_vals, leaf_level, state_forest, state_sponge, wide
     torch.cuda.empty_cache()
+
+    # -- phase 2b: the bench's multiply-chain kernel, then the bench --------
+    import bench_torch
+
+    def chain_inputs(n):
+        """(x, y): (n,) random canonical int32, 0, 1 and p - 1 first in x and
+        in y, in both orders."""
+        x, y = canonical((n,)), canonical((n,))
+        edge = torch.tensor([0, 1, P - 1], device=dev, dtype=torch.int32)
+        x[: min(n, 3)] = edge[: min(n, 3)]
+        y[: min(n, 3)] = edge.flip(0)[: min(n, 3)]
+        return x, y
+
+    chain_err = 0
+    for n in (1, 255, 4097, 1 << 22):
+        x, y = chain_inputs(n)
+        chain_err = max(chain_err, byte_err(babybear.mul_chain(x, y), babybear._mul_chain_plain(x, y)))
+    if chain_err:
+        raise AssertionError(f"the multiply-chain kernel disagrees with its plain version: byte err {chain_err}")
+    results["mul_chain"] = dict(max_abs_err=chain_err, shape=f"({1 << 22},) x2 int32 -> ({1 << 22},)",
+                                ms=bench_torch.queued_event_ms(babybear.mul_chain, x, y, 20),
+                                plain_ms=bench_torch.queued_event_ms(babybear._mul_chain_plain, x, y, 20),
+                                **bound(1 << 22, (1 << 22) * 12, instr_each=chain_instr))
+    r = results["mul_chain"]
+    log(f"phase 2b mul_chain: kernel == plain at 1, 255, 4097 and 2^22 elements (max byte err {chain_err}); "
+        f"{r['shape']}: kernel {r['ms']} ms, plain {r['plain_ms']} ms, bound {r['bound_ms']} ms by {r['bound_by']}")
+    del x, y
+    # This slice's path: the bench itself, at the two ladder sizes pinned for it.
+    bench_out = io.StringIO()
+    babybear.LAUNCHES["mul_chain"] = 0
+    with contextlib.redirect_stdout(bench_out):
+        bench_torch.main(["--v1", "14", "18", "--v2", "--v3", "--v4"])
+    chain_launches = babybear.LAUNCHES["mul_chain"]
+    bench_lines = bench_out.getvalue().strip().splitlines()
+    bench_line = json.loads(bench_lines[-1])
+    b = bench_line["extra"]
+    if not (bench_line["metric"] == "babybear_field_ops_per_s_per_chip" and bench_line["value"] > 0
+            and bench_line["unit"] == "field_mul/s" and b["backend"] == "cuda"
+            and bench_lines[-2] == info["nvidia_smi"] == b["cuda_device"]["nvidia_smi"]
+            and [(e["num_steps"], e["sha256"], e["held"]) for e in b["v1_ladder"]]
+            == [(pinned[n]["num_steps"], pinned[n]["sha256"], "pinned") for n in ("v1-nop-2^14", "v1-nop-2^18")]
+            and b["field_kernel_launches"] == chain_launches == 2 + bench_torch.FIELD_REPS):
+        raise AssertionError(f"the bench's line is not what its run should give ({chain_launches} launches): "
+                             f"{bench_line}")
+    log(f"phase 2b bench_torch.py --v1 14 18: {bench_line['value']} field_mul/s (kernel {b['field_kernel_ms']} ms a "
+        f"rep of 2^22 lanes, plain int64 chain {b['torch_int64_mul_per_s']} mul/s), v1 2^14 and 2^18 == pinned, "
+        f"host_anchor_s {b['host_anchor_s']}, mul_chain launches {chain_launches}")
 
     # -- proves ------------------------------------------------------------
     def port_prove(program, entry, segments, tape, max_steps):
@@ -1081,6 +1160,15 @@ def main() -> int:
                            for key in ("columns_data_shard", "columns_commit_device")]),
         entry_of("sha3_absorb (K5)", "absorb", ligero_source, "zigz_tpu/ops/ligero_dev.py:256",
                  v2_counts["absorb"]),
+        # A bench kernel with no TPU counterpart: bench.py:61 times an
+        # XLA-fused jnp chain of zigz_tpu/ops/babybear.py:91 mont_mul, which
+        # reaches no pl.pallas_call.
+        {"name": "field_mul_chain (bench headline)", "route": "cuda",
+         "source": "zigz_tpu_torch/csrc/field_kernels.cu", "replaces": "bench.py:61",
+         "tpu_kernel": None, "launches": chain_launches,
+         **{k: results["mul_chain"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "shape")},
+         "integer_instructions_an_element": chain_instr},
     ]}
     log(json.dumps({"torch_ops": torch_ops}))
     log(json.dumps(kernels_line))

@@ -13,7 +13,6 @@ import argparse
 import json
 import os
 import sys
-import time
 
 
 def main() -> int:
@@ -31,19 +30,16 @@ def main() -> int:
     sys.path.insert(0, os.getcwd())
     import zigz_tpu_torch as zt
     from zigz_tpu_torch.device import card_info
+    from zigz_tpu_torch.verifier.benchmarks import nop_program, timed_prove
 
     print(card_info()["nvidia_smi"], flush=True)
-    program = bytes([0x13, 0x00, 0x00, 0x00]) * (1 << args.log2_steps)
+    program = nop_program(1 << args.log2_steps)
     for _ in range(args.repeat):
-        torch.cuda.reset_peak_memory_stats()
         prover = zt.Prover(zt.BabyBear, seed=0, device="cuda", protocol_version=args.version)
-        t0 = time.perf_counter()
-        proof = prover.prove(program, 0x1000, None, 2 << args.log2_steps, None, None)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        proof, wall, peaks = timed_prove(prover, program, 2 << args.log2_steps)
         timings = {k: v for k, v in prover.last_timings.items() if isinstance(v, (int, float, str))}
         print(json.dumps({"tree": os.getcwd(), "version": args.version, "wall_s": wall,
-                          "peak_device_memory_B": torch.cuda.max_memory_allocated(),
+                          "peak_device_memory_B": peaks["max_memory_allocated_B"],
                           "proof_bytes": len(zt.serialization.BinarySerializer(zt.BabyBear).serialize(proof)),
                           **timings}), flush=True)
     return 0

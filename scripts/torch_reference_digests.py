@@ -42,7 +42,9 @@ CASES = {
     "v3-fibonacci-10": (3, {**FIB, "tape": [10]}, 1 << 16, "small"),
     "v4-nop-2^10": (4, {"kind": "nop", "count": 1 << 10}, 1 << 11, "small"),
     "v4-fibonacci-10": (4, {**FIB, "tape": [10]}, 1 << 16, "small"),
+    "v1-nop-2^14": (1, {"kind": "nop", "count": 1 << 14}, 1 << 15, "large"),
     "v1-nop-2^16": (1, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
+    "v1-nop-2^18": (1, {"kind": "nop", "count": 1 << 18}, 1 << 19, "large"),
     "v1-nop-2^20": (1, {"kind": "nop", "count": 1 << 20}, 1 << 21, "large"),
     "v1-nop-2^22": (1, {"kind": "nop", "count": 1 << 22}, 1 << 23, "large"),
     "v1-fibonacci-150000": (1, {**FIB, "tape": [150_000]}, 1 << 21, "large"),

@@ -426,3 +426,27 @@ def test_wrappers_under_a_one_rank_nccl_group(cuda, tmp_path):
     assert res["all_reduce"] == [0, 1, 2, 3, 4, 5] and res["exchange_rows"] == [0]
     assert res["collectives"] == {"all_reduce": 1, "all_gather": 3, "all_to_all": 2}
 
+
+
+def test_bench_on_the_card_prints_its_line(cuda):
+    """bench_torch.py at reduced sizes: the headline kernel's rate, v1 2^14
+    and v2 2^16 held to their pins, the card's line before the result."""
+    import subprocess
+    import sys
+
+    root = FIXTURES.parent.parent
+    res = subprocess.run([sys.executable, str(root / "bench_torch.py"), "--field-log2", "20", "--v1", "14",
+                          "--v2", "16", "--v3", "--v4"], cwd=root, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    extra = line["extra"]
+    assert line["metric"] == "babybear_field_ops_per_s_per_chip" and line["value"] > 0
+    assert extra["backend"] == "cuda" and extra["cuda_device"]["nvidia_smi"] == lines[-2]
+    assert extra["field_lanes"] == 1 << 20 and extra["field_kernel_launches"] == 22
+    assert extra["torch_int64_mul_per_s"] > 0
+    (entry,) = extra["v1_ladder"]
+    assert entry["held"] == extra["v2_held"] == "pinned"
+    assert entry["sha256"] == PINNED["v1-nop-2^14"]["sha256"] and extra["v2_sha256"] == PINNED["v2-nop-2^16"]["sha256"]
+    assert entry["launches"]["K1"] > 0 and entry["max_memory_allocated_B"] > 0
+    assert extra["v2_counters"]["device_zerochecks"] == extra["v2_counters"]["zerochecks"] > 0

@@ -123,7 +123,7 @@ def test_build_raises_when_the_library_does_not_load(fresh_build, monkeypatch):
 
 def test_build_hashes_the_sources():
     units, headers = _build._sources()
-    assert [p.name for p in units] == ["ligero_kernels.cu", "sha3_kernels.cu"]
+    assert [p.name for p in units] == ["field_kernels.cu", "ligero_kernels.cu", "sha3_kernels.cu"]
     assert [p.name for p in headers] == ["keccak.cuh"]
     path = _build._library_path(units, headers)
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"

@@ -15,7 +15,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "zigz_tpu_torch"
 FIXTURES = ROOT / "tests" / "fixtures"
 FORBIDDEN = ("jax", "jaxlib", "zigz_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "__graft_entry_torch__.py",
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "__graft_entry_torch__.py",
                                         ROOT / "scripts" / "torch_group_phases.py",
                                         ROOT / "tests" / "torch_group_checks.py"]
 
@@ -42,7 +42,7 @@ def test_sources_are_found():
             "zigz_tpu_torch/parallel/dist.py", "zigz_tpu_torch/parallel/recovery.py",
             "zigz_tpu_torch/parallel/jobs.py", "zigz_tpu_torch/ops/ligero_mesh.py",
             "zigz_tpu_torch/ops/batch_eval_dev.py", "__graft_entry_torch__.py",
-            "chip_smoke.py", "tests/torch_group_checks.py"} <= names
+            "chip_smoke.py", "bench_torch.py", "tests/torch_group_checks.py"} <= names
     assert not (PORT / "_jaxfree.py").exists()
 
 

@@ -56,6 +56,7 @@ _SYMBOLS = {
     "zigz_sha3_merge": _LAUNCHER,
     "zigz_sha3_columns": ([_PTR, _PTR, _I64, _I64, _PTR], _INT),
     "zigz_sha3_absorb": ([_PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _PTR], _INT),
+    "zigz_field_mul_chain": ([_PTR, _PTR, _I64, _PTR, _PTR], _INT),
     "zigz_cuda_error_string": ([_INT], ctypes.c_char_p),
 }
 

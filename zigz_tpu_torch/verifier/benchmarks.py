@@ -7,6 +7,8 @@ steps-per-second and the O(log n) scaling analysis (:42-177).
 Counterpart of zigz_tpu/verifier/benchmarks.py over the port's ``Prover``
 and ``Verifier``; the device is explicit (``"cuda"`` by default, which
 raises without a card; ``"cpu"`` runs the kernels' plain versions).
+``nop_program`` and ``timed_prove`` are the pieces that bench_torch.py and
+scripts/torch_prove_once.py time their proves with.
 """
 
 from __future__ import annotations
@@ -14,16 +16,43 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
+
+import torch
 
 from ..core.field import BabyBear
+from ..device import synchronize
 from ..prover.prover import Prover
 from ..prover.serialization import BinarySerializer
 from ..verifier.verifier import Verifier
 
-__all__ = ["BenchmarkResult", "BenchmarkSuite"]
+__all__ = ["BenchmarkResult", "BenchmarkSuite", "nop_program", "timed_prove"]
 
 DEFAULT_SIZES = (16, 64, 256, 1024, 4096, 16384)
+
+
+def nop_program(n: int) -> bytes:
+    """n NOP instructions (``addi x0, x0, 0``), entered at 0x1000."""
+    return bytes([0x13, 0x00, 0x00, 0x00] * n)
+
+
+def timed_prove(prover: Prover, program: bytes, max_steps: int):
+    """One prove of ``program`` at 0x1000, timed by the host clock once the
+    device's queue has drained (the work, not its enqueue).  Returns
+    (proof, seconds, peaks): peaks is the card's ``max_memory_allocated``
+    and ``max_memory_reserved`` over the prove, in bytes, None on the CPU."""
+    dev = prover.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    proof = prover.prove(program, 0x1000, None, max_steps, None, None)
+    synchronize(dev)
+    seconds = time.perf_counter() - t0
+    peaks: Optional[dict] = None
+    if dev.type == "cuda":
+        peaks = {"max_memory_allocated_B": torch.cuda.max_memory_allocated(dev),
+                 "max_memory_reserved_B": torch.cuda.max_memory_reserved(dev)}
+    return proof, seconds, peaks
 
 
 @dataclass
@@ -44,19 +73,13 @@ class BenchmarkSuite:
         self.verify_iters = verify_iters
         self.results: List[BenchmarkResult] = []
 
-    @staticmethod
-    def _nop_program(n: int) -> bytes:
-        return bytes([0x13, 0x00, 0x00, 0x00] * n)
-
     def run(self, sizes=DEFAULT_SIZES) -> List[BenchmarkResult]:
         ser = BinarySerializer(self.F)
         self.results = []
         for n in sizes:
-            program = self._nop_program(n)
+            program = nop_program(n)
             prover = Prover(self.F, seed=0, device=self.device)
-            t0 = time.perf_counter()
-            proof = prover.prove(program, 0x1000, None, max(n * 2, 1 << 10), None, None)
-            prove_s = time.perf_counter() - t0
+            proof, prove_s, _peaks = timed_prove(prover, program, max(n * 2, 1 << 10))
 
             proof_bytes = ser.serialize(proof)
 
