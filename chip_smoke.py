@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's v1 to v4 provers, its forest's memory plan
-at 2^25 steps, its base-field device zerocheck, its standalone modules and
-its sharded prover (two ranks sharing the card) on one NVIDIA GPU and check
-them.
+"""Drive the PyTorch/CUDA port's v1 to v4 provers, its zerocheck kernels,
+its forest's memory plan at 2^25 steps, its base-field device zerocheck,
+its standalone modules and its sharded prover (two ranks sharing the card)
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        (from the root of a checkout; needs one CUDA device)
 
@@ -88,7 +88,10 @@ the last line:
      the columns read from the resident matrices against those uploaded,
      the DAG sweep's launches and peak device memory, the advice planes
      built on the device (148 at 2^20), the build time of each twin and
-     the ADVICE rows that were uploaded.
+     the ADVICE rows that were uploaded.  The sweep is the zerocheck
+     kernels Z1 and Z2 alone: their launches must be those each
+     zerocheck's width and host tail imply (two a card round), at most
+     1,000 at 2^20.
   7. ``ligero_commit_device`` of 43 random MLEs at 2^18: root, leaf digests
      and levels equal the port's host ``ligero_commit`` (the C++ encoder and
      column hasher) of the same columns; the state, whose matrix lies on
@@ -101,6 +104,20 @@ the last line:
      NOP steps, for the fibonacci guest (60,013 steps) and at 2^20 NOP
      steps: pinned digest, Accept, no SHA3 kernel launched, the Poseidon2
      permutation calls.
+ 9b. the zerocheck kernels (csrc/zerocheck_kernels.cu; they replace the
+     JAX package's XLA-fused jit, not a Pallas kernel) against their plain
+     versions on the same card tensors, values equal (tolerance 0), on the
+     DAGs of phase 6's 2^20 v2 prove traced with random challenges
+     (``zerocheck_kernel_phase``): Z1 ``dag_dev.round_sums`` with the
+     largest DAG's round-0 program at width 2^20 and its later-round
+     program at 2^19, the smallest DAG at 2^20, 64 and 2, and phase 12's
+     base-field grand product with its eq row at 2^20; Z2
+     ``ext4_dev.fold_planes`` from the round-0 layout at 2^20 and from the
+     all-extension layout at 2^19.  Times by CUDA events; Z1's bound from
+     the DAG's multiplies and adds (the multiply chain's integer
+     instructions a multiply, from its SASS, and 3 an add) over the INT32
+     rate, against the planes' bytes; Z2's from its bytes.  No PyTorch
+     call evaluates a DAG or an Ext4 fold (``library_ms`` null).
  10. the forest's memory plan at sizes that have a reference: with the
      thresholds of commitments/device_forest.py forced low (three levels
      freed, three groups of 16, 16 and 11 trees), v1 at 2^22 NOP steps and
@@ -125,8 +142,8 @@ the last line:
      grand-product combiner (five columns, degree 4) at width 2^20 through
      ``make_zerocheck_prover(..., device=card)``, against the native C++
      prover from the same transcript: round values, challenges, terminal
-     evaluations and the transcript's next challenge equal; time and sweep
-     launches printed.
+     evaluations and the transcript's next challenge equal; its card rounds
+     (those wider than the numpy tail) one launch of Z1 each; time printed.
  13. the standalone modules, host code that must import and run here with
      JAX blocked: ``SumcheckProver.prove`` on a 2^16 polynomial, accepted by
      ``SumcheckVerifier.verify_rounds`` against the hypercube sum; a
@@ -176,7 +193,9 @@ measurements at the other two shapes of phase 2); K3, the permutation inlined in
 measurements (one permutation per thread) and K1's plus K2's launches; every
 entry carries the launches per rank of phase 15's two proves
 (``launches_group_v1_2_22``, ``launches_group_v2_2_20``).  The multiply-chain kernel's entry takes its
-launches from the bench run of phase 2b.  The last three lines are the
+launches from the bench run of phase 2b.  Z1's and Z2's entries take their
+launches from the 2^20 v2 prove of phase 6 (v3, v4 at 2^20 and v2 at 2^16
+beside them) and their measurements from phase 9b.  The last three lines are the
 kernel JSON line, the card's nvidia-smi line and the result line
 {"ok": true, "device": {...}}.
 """
@@ -213,6 +232,174 @@ def log(msg: str) -> None:
 
 def sha(data: bytes) -> str:
     return hashlib.sha256(data).hexdigest()
+
+
+def make_grand_product(tau: int, gamma: int):
+    """The base-field combiner of phase 12: fingerprint products,
+    public-column mixing, degree-3 gating, over the columns a, b, g,
+    __sel__ and __idx__."""
+    def grand_product(cols, alphas, p):
+        sel, idx = cols["__sel__"], cols["__idx__"]
+        a, b, g = cols["a"], cols["b"], cols["g"]
+        fp = (tau + p - (a + gamma * b) % p) % p
+        c1 = (g * fp + p - sel) % p
+        c2 = sel * ((1 + p - sel) % p) % p
+        c3 = sel * b % p * ((idx + a) % p) % p
+        return (alphas[0] * c1 + alphas[1] * c2 + alphas[2] * c3) % p
+
+    return grand_product
+
+
+def zerocheck_spec(zc) -> dict:
+    """What the zerocheck kernels' phase needs of a GenericDeviceZerocheckExt:
+    its combiner, tables, degree and row maps (no column data)."""
+    return dict(combiner=zc.combiner, base_names=list(zc.base_names), ext_names=list(zc.ext_names),
+                degree=zc.degree, num_alphas=zc.num_alphas, row_maps=zc._row_maps(),
+                nodes=len(zc._probe2.nodes), n=zc.n, host_tail=zc.host_tail)
+
+
+def card_zerocheck_launches(n: int, host_tail: int) -> int:
+    """Z1 and Z2 launches of one extension zerocheck of width n: Z1 for
+    round 0, Z2 and Z1 for every later round whose width before the fold
+    stays above the host tail, and the last fold where no round went to the
+    host (ops/zerocheck_dev_ext.py)."""
+    num_vars = n.bit_length() - 1
+    on_card = [rnd for rnd in range(1, num_vars) if n >> rnd > host_tail]
+    return 1 + 2 * len(on_card) + (len(on_card) == num_vars - 1)
+
+
+def zerocheck_kernel_phase(specs, dev, max_sm_mhz: float, mul_instr: float, add_instr: int) -> dict:
+    """Phase 9b: the zerocheck kernels Z1 (``dag_dev.round_sums``) and Z2
+    (``ext4_dev.fold_planes``) against their plain versions on the same card
+    tensors, values equal (tolerance 0), ms by CUDA events, bounds.
+
+    ``specs`` are the extension zerochecks of a v2 prove (``zerocheck_spec``).
+    Z1: the largest DAG's round-0 program at width 2^20 and its later-round
+    program at 2^19 (the shapes of the 2^20 prove), the smallest DAG at
+    2^20, 64 and 2, and the base-field grand product of phase 12 with its eq
+    row at 2^20, each traced with random extension (or base) challenges.
+    Z2: a fold of the largest zerocheck's tables from the round-0 layout at
+    2^20 and from the all-extension layout at 2^19.  Z1's bound is the
+    larger of its field operations (multiplies x ``mul_instr`` and adds and
+    subtracts x ``add_instr`` integer instructions a lane-point, over 132 SMs
+    x 64 INT32 lanes x the maximum clock) and the planes' bytes read once;
+    Z2's the bytes read once and written once, both over 3.35 TB/s."""
+    import numpy as np
+    import torch
+
+    from zigz_tpu_torch.core.ext4 import ext_from_ints
+    from zigz_tpu_torch.ops import dag_dev, ext4_dev
+    from zigz_tpu_torch.ops.symtrace import compile_device, trace_combiner, trace_combiner_ext
+    from zigz_tpu_torch.ops.zerocheck_dev_ext import fold_groups
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.default_rng(9)
+
+    def planes_of(rows, width):
+        """(rows, width) random canonical int64, 0 and p - 1 among lo and hi."""
+        pl = torch.randint(0, P, (rows, width), device=dev, dtype=torch.int64, generator=gen)
+        edge = torch.tensor([0, P - 1], device=dev, dtype=torch.int64)
+        pl[:, : min(2, width // 2)] = edge[: min(2, width // 2)]
+        pl[:, width // 2 : width // 2 + min(2, width // 2)] = edge.flip(0)[: min(2, width // 2)]
+        return pl
+
+    def ext_values(k):
+        return [ext_from_ints([int(x) for x in rng.integers(0, P, size=4)]) for _ in range(k)]
+
+    def event_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bound(ops_instr, nbytes):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_instr / (INT32_LANES * max_sm_mhz * 1e6) * 1e3
+        return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    library_ms=None)
+
+    def check_z1(tag, program, consts, planes, degree, eq=None, reps=3):
+        got = dag_dev.round_sums(program, consts, planes, degree, eq)
+        want = dag_dev.plain_round_sums(program, consts, planes, degree, eq).cpu()
+        err = int((got - want).abs().max())
+        if err or got.shape != (degree, len(program.outs)):
+            raise AssertionError(f"Z1 {tag}: the kernel's round sums differ from the plain version's")
+        rows, width = planes.shape
+        c = program.counts
+        entry = dict(shape=f"{tag}: {len(program.code)} instructions ({c['mul']} mul, {c['add']} add, "
+                           f"{c['sub']} sub, {c['row_reads']} row reads), {program.n_slots} slots, "
+                           f"{threads_of(program, consts)} threads a block, ({rows}, {width}) planes, degree {degree}",
+                     max_abs_err=err,
+                     ms=event_ms(lambda: dag_dev.round_sums(program, consts, planes, degree, eq), reps),
+                     plain_ms=event_ms(lambda: dag_dev.plain_round_sums(program, consts, planes, degree, eq), 1),
+                     **bound(width // 2 * degree * (c["mul"] * mul_instr + (c["add"] + c["sub"]) * add_instr),
+                             rows * width * 8))
+        log(f"phase 9b Z1 {entry['shape']}: kernel == plain (max err {err}); kernel {entry['ms']} ms, "
+            f"plain {entry['plain_ms']} ms, bound {entry['bound_ms']} ms by {entry['bound_by']}")
+        return entry
+
+    def threads_of(program, consts):
+        return dag_dev.block_threads(program, len(consts.table))
+
+    def check_z2(tag, planes, groups):
+        r4 = ext_values(1)[0].to_ints()
+        got = ext4_dev.fold_planes(planes, r4, groups)
+        err = int((got - ext4_dev._fold_planes_plain(planes, r4, groups)).abs().max())
+        if err:
+            raise AssertionError(f"Z2 {tag}: the kernel's fold differs from the plain version's")
+        g = groups.table
+        rows_read = int((g[:, 0] == 0).sum()) + 4 * int((g[:, 0] == 1).sum())
+        width = planes.shape[1]
+        entry = dict(shape=f"{tag}: ({planes.shape[0]}, {width}) -> ({got.shape[0]}, {got.shape[1]}), "
+                           f"{len(g)} tables",
+                     max_abs_err=err, ms=event_ms(lambda: ext4_dev.fold_planes(planes, r4, groups), 10),
+                     plain_ms=event_ms(lambda: ext4_dev._fold_planes_plain(planes, r4, groups), 2),
+                     **bound(0, (rows_read * width + got.numel()) * 8))
+        log(f"phase 9b Z2 {entry['shape']}: kernel == plain (max err {err}); kernel {entry['ms']} ms, "
+            f"plain {entry['plain_ms']} ms, bound {entry['bound_ms']} ms by {entry['bound_by']}")
+        return entry
+
+    big = max(specs, key=lambda s: s["nodes"])
+    small = min(specs, key=lambda s: s["nodes"])
+    z1, z2 = [], []
+    for spec, widths in ((big, (1 << 20,)), (small, (1 << 20, 64, 2))):
+        B, E = len(spec["base_names"]), len(spec["ext_names"])
+        G = B + E + 1
+        first_groups, ext_groups = fold_groups(B, E)
+        alphas = ext_values(spec["num_alphas"])
+        programs, sizes = [], []
+        for lift, row_of in zip((False, True), spec["row_maps"]):
+            tr = trace_combiner_ext(spec["combiner"], spec["base_names"], spec["ext_names"], alphas, P,
+                                    lift_base=lift)
+            program = compile_device(tr.nodes, tr.outs, row_of)
+            programs.append((program, program.constants(tr.consts)))
+            sizes.append(len(tr.nodes))
+        for width in widths:
+            planes0 = planes_of(B + 4 * (E + 1), width)
+            z1.append(check_z1(f"{sizes[0]}-node round-0 DAG", *programs[0], planes0, spec["degree"]))
+            if spec is big:
+                z2.append(check_z2("round-0 layout", planes0, first_groups))
+                del planes0
+                planes1 = planes_of(4 * G, width // 2)
+                z1.append(check_z1(f"{sizes[1]}-node later-round DAG", *programs[1], planes1,
+                                   spec["degree"]))
+                z2.append(check_z2("all-extension layout", planes1, ext_groups))
+                del planes1
+            torch.cuda.empty_cache()
+    names = ["__idx__", "__sel__", "a", "b", "g"]
+    tr = trace_combiner(make_grand_product(*(int(x) for x in rng.integers(1, P, size=2))), names,
+                        [int(x) for x in rng.integers(0, P, size=3)], P)
+    row_of = {name: i for i, name in enumerate(names)}
+    program = compile_device(tr.nodes, [tr.out], row_of)
+    z1.append(check_z1("base-field grand product x eq", program, program.constants(tr.consts),
+                       planes_of(len(names) + 1, 1 << 20), 4, eq=len(names)))
+    torch.cuda.empty_cache()
+    return {"z1": z1, "z2": z2}
 
 
 def group_phases(pinned) -> dict:
@@ -374,8 +561,8 @@ def main() -> int:
     from zigz_tpu_torch.core.hash import FiatShamirTranscript
     from zigz_tpu_torch.lookups import lasso, pipeline_lasso
     from zigz_tpu_torch.lookups.table_builder import build_xor_table
-    from zigz_tpu_torch.ops import (_build, advice_dev, babybear, keccak, ligero_dev, ntt_dev, poseidon2,
-                                    witness_dev, zerocheck_dev_ext, zerocheck_gen)
+    from zigz_tpu_torch.ops import (_build, advice_dev, babybear, dag_dev, ext4_dev, keccak, ligero_dev, ntt_dev,
+                                    poseidon2, witness_dev, zerocheck_dev_ext, zerocheck_gen)
     from zigz_tpu_torch.ops.zerocheck_native import NativeZerocheckProver
     from zigz_tpu_torch.prover import prover as prover_module
     from zigz_tpu_torch.prover import unified
@@ -799,6 +986,18 @@ def main() -> int:
     for twin_name in ("core_logup_advice_dev", "regcheck_advice_dev", "bytecode_advice_dev"):
         timed_twin(twin_name)
 
+    # Every extension zerocheck of a prove is recorded (its width, host tail
+    # and combiner, no column data): its launches of Z1 and Z2 follow from
+    # its width, and phase 9b runs the kernels on the 2^20 v2 prove's DAGs.
+    zc_seen = []
+    zc_prove = zerocheck_dev_ext.GenericDeviceZerocheckExt.prove
+
+    def watched_zc_prove(self, transcript):
+        zc_seen.append(zerocheck_spec(self))
+        return zc_prove(self, transcript)
+
+    zerocheck_dev_ext.GenericDeviceZerocheckExt.prove = watched_zc_prove
+
     def check_advice_planes():
         """(planes, their bytes, ms per twin) of the last prove; raises where a
         plane differs from the host advice column of the same prove."""
@@ -819,6 +1018,9 @@ def main() -> int:
         poseidon2.PERMUTATIONS["count"] = 0
         ligero.STITCHED.update(dev_columns=0, host_rows=0)
         zerocheck_dev_ext.reset_counters()
+        dag_dev.LAUNCHES["round_sums"] = 0
+        ext4_dev.LAUNCHES["fold_planes"] = 0
+        zc_seen.clear()
         pipeline_lasso.DEVICE_ROUNDS["count"] = 0
         advice_seen.clear()
         twin_events.clear()
@@ -828,7 +1030,8 @@ def main() -> int:
             raise AssertionError(f"Prover's default device is {prover.device}, not the card")
         proof = prover.prove(program, entry, None, max_steps, segments, tape)
         peak = torch.cuda.max_memory_allocated(dev)  # before the checks below allocate
-        counts = {**keccak.LAUNCHES, **ligero_dev.LAUNCHES, "p2_permutations": poseidon2.PERMUTATIONS["count"]}
+        counts = {**keccak.LAUNCHES, **ligero_dev.LAUNCHES, "p2_permutations": poseidon2.PERMUTATIONS["count"],
+                  **dag_dev.LAUNCHES, **ext4_dev.LAUNCHES}
         if counts["columns"]:
             raise AssertionError(f"K4 is on no prove, yet the v{version} prove launched it: {counts}")
         # v2: SHA3 forest and sponge; v4: no forest; v3: Poseidon2 throughout.
@@ -845,6 +1048,12 @@ def main() -> int:
                        "advice_rows_uploaded": ligero.STITCHED["host_rows"]}
         if device_work["device_zerochecks"] != device_work["zerochecks"] or not device_work["zerochecks"]:
             raise AssertionError(f"not every zerocheck ran on the device: {device_work}")
+        # The sweep is Z1 and Z2 and nothing else: their launches are those
+        # the zerochecks' widths and host tail imply.
+        device_work["sweep_launches_implied"] = sum(card_zerocheck_launches(z["n"], z["host_tail"]) for z in zc_seen)
+        if not (device_work["sweep_launches"] == counts["round_sums"] + counts["fold_planes"]
+                == device_work["sweep_launches_implied"] and counts["round_sums"] and counts["fold_planes"]):
+            raise AssertionError(f"the zerocheck sweep did not run through Z1 and Z2 alone: {device_work}, {counts}")
         if not device_work["lasso_device_rounds"] or not device_work["columns_resident"]:
             raise AssertionError(f"the Lasso rounds or the resident columns were not used: {device_work}")
         planes_checked, planes_held_B, twin_ms = check_advice_planes()
@@ -878,6 +1087,12 @@ def main() -> int:
             data, prover, counts, peak, device_work = port_prove_v2(program, entry, segments, tape, max_steps, version)
             if name.endswith("nop-2^20"):
                 launches_at_2_20[version] = counts
+                if device_work["sweep_launches"] > 1000:
+                    raise AssertionError(f"{name}: {device_work['sweep_launches']} sweep launches, not a few hundred")
+                if version == 2:
+                    v2_zerochecks = list(zc_seen)  # phase 9b's DAGs
+            elif name == "v2-nop-2^16":
+                launches_at_2_16 = counts
             t = prover.last_timings
             check_pinned(name, case, data, t["num_steps"])
             log(f"phase {phase} {name}: steps {t['num_steps']}, {len(data)} B, sha256 {sha(data)[:16]} == pinned, Accept, "
@@ -892,6 +1107,13 @@ def main() -> int:
             del data, program
             torch.cuda.empty_cache()
     v2_counts = launches_at_2_20[2]
+
+    # -- phase 9b: the zerocheck kernels against their plain versions ------
+    t0 = time.perf_counter()
+    results.update(zerocheck_kernel_phase(v2_zerochecks, dev, max_sm_mhz, chain_instr / (babybear.CHAIN + 1), 3))
+    del v2_zerochecks
+    log(f"phase 9b: Z1 and Z2 == their plain versions at {len(results['z1'])} and {len(results['z2'])} shapes "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 7: ligero_commit_device against ligero_commit ---------------
     names = [f"w{k:02d}" for k in range(43)]
@@ -1042,15 +1264,7 @@ def main() -> int:
     zc_cols["__idx__"] = np.arange(n, dtype=np.uint64)
     zc_tau, zc_gamma = (int(x) for x in zc_rng.integers(1, P, size=2))
 
-    def grand_product(cols, alphas, p):
-        """Fingerprint products, public-column mixing, degree-3 gating."""
-        sel, idx = cols["__sel__"], cols["__idx__"]
-        a, b, g = cols["a"], cols["b"], cols["g"]
-        fp = (zc_tau + p - (a + zc_gamma * b) % p) % p
-        c1 = (g * fp + p - sel) % p
-        c2 = sel * ((1 + p - sel) % p) % p
-        c3 = sel * b % p * ((idx + a) % p) % p
-        return (alphas[0] * c1 + alphas[1] * c2 + alphas[2] * c3) % p
+    grand_product = make_grand_product(zc_tau, zc_gamma)
 
     def zerocheck_run(zc_prover):
         transcript = FiatShamirTranscript()
@@ -1070,12 +1284,14 @@ def main() -> int:
     on_host, host_s = zerocheck_run(NativeZerocheckProver(F, zc_cols, grand_product, 4, num_alphas=3))
     if on_card != on_host:
         raise AssertionError("the base-field device zerocheck differs from the native C++ prover")
-    if zerocheck_gen.DEVICE_PROVES["count"] != 1 or not zerocheck_gen.DEVICE_PROVES["sweep_launches"]:
-        raise AssertionError(f"the zerocheck did not run on the card: {zerocheck_gen.DEVICE_PROVES}")
+    card_rounds = 20 - (zerocheck_gen.HOST_TAIL.bit_length() - 1)  # rounds wider than the numpy tail
+    if zerocheck_gen.DEVICE_PROVES != {"count": 1, "sweep_launches": card_rounds}:
+        raise AssertionError(f"the zerocheck did not run its {card_rounds} card rounds through Z1: "
+                             f"{zerocheck_gen.DEVICE_PROVES}")
     log(f"phase 12 base-field zerocheck, 5 columns x 2^20, degree 4: GenericDeviceZerocheck on the card == "
         f"NativeZerocheckProver (20 rounds, terminal evaluations {sorted(on_card[4])}, next challenge equal); "
-        f"card {card_s} s with {zerocheck_gen.DEVICE_PROVES['sweep_launches']} sweep launches over "
-        f"{20 - 12} device rounds, native host prover {host_s} s")
+        f"card {card_s} s with {zerocheck_gen.DEVICE_PROVES['sweep_launches']} launches of Z1 over "
+        f"{card_rounds} card rounds, native host prover {host_s} s")
 
     # -- phase 13: the standalone modules ------------------------------------
     sc_rng = np.random.default_rng(13)
@@ -1170,6 +1386,25 @@ def main() -> int:
                                                   "library_ms", "shape")},
          "integer_instructions_an_element": chain_instr},
     ]}
+    # The zerocheck kernels replace XLA-fused jit, not a Pallas kernel: their
+    # "replaces" names the JAX functions.  Launches from the v2 2^20 prove
+    # (the main path), v3 and v4 at 2^20 and v2 at 2^16 beside them.
+    for key, counter, name, replaces in (
+            ("z1", "round_sums", "dag_round_sums (Z1)",
+             "zigz_tpu/ops/symtrace.py:260 compile_device + zigz_tpu/ops/zerocheck_dev_ext.py:113 _round_sums"),
+            ("z2", "fold_planes", "ext_fold (Z2)",
+             "zigz_tpu/ops/ext4_dev.py:132 ext_fold_dev, :144 ext_fold_base_dev "
+             "(zigz_tpu/ops/zerocheck_dev_ext.py:252,278)")):
+        first, *rest = results[key]
+        kernels_line["kernels"].append(
+            {"name": name, "route": "cuda", "source": "zigz_tpu_torch/csrc/zerocheck_kernels.cu",
+             "replaces": replaces, "tpu_kernel": None, "launches": v2_counts[counter],
+             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "shape")},
+             "launches_v3": launches_at_2_20[3][counter], "launches_v4": launches_at_2_20[4][counter],
+             "launches_v2_2_16": launches_at_2_16[counter],
+             "other_shapes": [{k: e[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                              for e in rest]})
     log(json.dumps({"torch_ops": torch_ops}))
     log(json.dumps(kernels_line))
     log(info["nvidia_smi"])

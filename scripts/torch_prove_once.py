@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """One prove of N NOP steps on the card, its phase timings as one JSON line.
 
-    python scripts/torch_prove_once.py [--version 2] [--log2-steps 20] [--repeat 1]
+    python scripts/torch_prove_once.py [--version 2] [--log2-steps 20] [--repeat 1] [--host-tail N]
 
 Run it from the root of a checkout: it imports the ``zigz_tpu_torch`` of the
 current directory, so the same script times two checkouts in turns
 (parent, change, change, parent) inside one call on one card.  The card's
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line comes
-first.  Needs a CUDA device."""
+first.  ``--host-tail N`` sets the width at which the extension zerochecks
+finish on the host (``zerocheck_dev_ext.HOST_TAIL_EXT``); each line carries
+their counters (``DEVICE_PROVES``: zerochecks and the zerocheck kernels'
+launches).  Needs a CUDA device."""
 
 import argparse
 import json
@@ -20,6 +23,8 @@ def main() -> int:
     ap.add_argument("--version", type=int, default=2)
     ap.add_argument("--log2-steps", type=int, default=20)
     ap.add_argument("--repeat", type=int, default=1)
+    ap.add_argument("--host-tail", type=int, default=None,
+                    help="width at which the extension zerochecks finish on the host (default: the module's)")
     args = ap.parse_args()
 
     import torch
@@ -30,16 +35,23 @@ def main() -> int:
     sys.path.insert(0, os.getcwd())
     import zigz_tpu_torch as zt
     from zigz_tpu_torch.device import card_info
+    from zigz_tpu_torch.ops import zerocheck_dev_ext
     from zigz_tpu_torch.verifier.benchmarks import nop_program, timed_prove
 
     print(card_info()["nvidia_smi"], flush=True)
+    if args.host_tail is not None:
+        zerocheck_dev_ext.HOST_TAIL_EXT = args.host_tail
     program = nop_program(1 << args.log2_steps)
     for _ in range(args.repeat):
+        zerocheck_dev_ext.reset_counters()
         prover = zt.Prover(zt.BabyBear, seed=0, device="cuda", protocol_version=args.version)
         proof, wall, peaks = timed_prove(prover, program, 2 << args.log2_steps)
         timings = {k: v for k, v in prover.last_timings.items() if isinstance(v, (int, float, str))}
         print(json.dumps({"tree": os.getcwd(), "version": args.version, "wall_s": wall,
                           "peak_device_memory_B": peaks["max_memory_allocated_B"],
+                          "peak_device_reserved_B": peaks["max_memory_reserved_B"],
+                          "host_tail": zerocheck_dev_ext.HOST_TAIL_EXT,
+                          "zerocheck_device": dict(zerocheck_dev_ext.DEVICE_PROVES),
                           "proof_bytes": len(zt.serialization.BinarySerializer(zt.BabyBear).serialize(proof)),
                           **timings}), flush=True)
     return 0

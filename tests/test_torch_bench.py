@@ -62,8 +62,11 @@ def test_plain_chain_matches_the_jax_chain():
 
 
 def _kernel_constants():
-    src = (ROOT / "zigz_tpu_torch" / "csrc" / "field_kernels.cu").read_text()
-    return {name: int(re.search(rf"constexpr \w+ {name} = (0x[0-9a-f]+|\d+)u;", src).group(1), 0)
+    csrc = ROOT / "zigz_tpu_torch" / "csrc"
+    field = (csrc / "babybear.cuh").read_text()  # the field helpers field_kernels.cu includes
+    src = (csrc / "field_kernels.cu").read_text()
+    assert '#include "babybear.cuh"' in src
+    return {name: int(re.search(rf"constexpr \w+ {name} = (0x[0-9a-f]+|\d+)u;", field).group(1), 0)
             for name in ("kP", "kNegPInv", "kR2")} | {
         "kChain": int(re.search(r"constexpr int kChain = (\d+);", src).group(1))}
 

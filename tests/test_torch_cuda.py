@@ -259,6 +259,42 @@ def test_ext_zerocheck_of_a_real_v2_combiner_on_the_card_matches_native(cuda):
     assert zerocheck_dev_ext.DEVICE_PROVES["count"] == 1  # the native prover is not counted
 
 
+@pytest.mark.parametrize("width", [2, 64, 1 << 12])
+def test_zerocheck_kernels_match_their_plain_versions(cuda, width):
+    """Z1 (round sums of the core argument's DAGs, both layouts) and Z2
+    (the fold from each layout) on card tensors == their plain versions on
+    the same tensors; each wrapper call is one launch."""
+    from zigz_tpu_torch.constraints import v2
+    from zigz_tpu_torch.constraints.core_arg import CORE_COLUMNS, V2_G_COLUMNS
+    from zigz_tpu_torch.ops import dag_dev
+    from zigz_tpu_torch.ops.symtrace import compile_device, trace_combiner_ext
+
+    rng = np.random.default_rng(width)
+    ext = [ext_from_ints([int(x) for x in rng.integers(0, P, size=4)]) for _ in range(2 + v2.NUM_V2_ALPHAS)]
+    comb = v2.make_v2_combiner(ext[0], ext[1])
+    base = sorted((*CORE_COLUMNS, *V2_G_COLUMNS, *v2.logup_public_tables(4, 2, P)))
+    B, G = len(base), len(base) + 1
+    zc = zerocheck_dev_ext.GenericDeviceZerocheckExt(
+        BabyBear, {name: np.zeros(width, dtype=np.uint64) for name in base}, comb, v2.V2_DEGREE,
+        num_alphas=v2.NUM_V2_ALPHAS, device=cuda)
+    layouts = (B + 4, 4 * G)
+    for lift, row_of, rows in zip((False, True), zc._row_maps(), layouts):
+        tr = trace_combiner_ext(comb, base, [], ext[2:], P, lift_base=lift)
+        program = compile_device(tr.nodes, tr.outs, row_of)
+        consts = program.constants(tr.consts)
+        planes = torch.from_numpy(rng.integers(0, P, size=(rows, width), dtype=np.int64)).to(cuda)
+        before = dag_dev.LAUNCHES["round_sums"]
+        got = dag_dev.round_sums(program, consts, planes, v2.V2_DEGREE)
+        assert dag_dev.LAUNCHES["round_sums"] == before + 1
+        assert torch.equal(got, dag_dev.plain_round_sums(program, consts, planes, v2.V2_DEGREE).cpu())
+        groups = zerocheck_dev_ext.fold_groups(B, 0)[lift]
+        r4 = [int(x) for x in rng.integers(0, P, size=4)]
+        before = ext4_dev.LAUNCHES["fold_planes"]
+        folded = ext4_dev.fold_planes(planes, r4, groups)
+        assert ext4_dev.LAUNCHES["fold_planes"] == before + 1
+        assert torch.equal(folded, ext4_dev._fold_planes_plain(planes, r4, groups))
+
+
 def test_ext4_and_lasso_rounds_on_the_card_match_the_cpu(cuda):
     rng = np.random.default_rng(31)
     t4 = torch.from_numpy(rng.integers(0, P, size=(4, 5, 1 << 10), dtype=np.int64))

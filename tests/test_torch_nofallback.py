@@ -4,8 +4,9 @@
 * The kernel build raises with a clear message when nvcc is missing, when
   nvcc fails (its stderr is in the error), and when the library does not
   load; it never returns a fallback.
-* The Ligero entry points on a CUDA tensor build the kernels or raise;
-  they never hash on the host.
+* The Ligero entry points and the zerocheck kernels' wrappers
+  (``dag_dev.round_sums``, ``ext4_dev.fold_planes``) on a CUDA tensor
+  build the kernels or raise; they never hash, sum or fold on the host.
 * The zerocheck and Lasso dispatch with a device never goes back to the
   host provers: an absent CUDA device raises, a combiner outside the traced
   algebra raises ``TraceError``, and there is no width gate.
@@ -123,8 +124,9 @@ def test_build_raises_when_the_library_does_not_load(fresh_build, monkeypatch):
 
 def test_build_hashes_the_sources():
     units, headers = _build._sources()
-    assert [p.name for p in units] == ["field_kernels.cu", "ligero_kernels.cu", "sha3_kernels.cu"]
-    assert [p.name for p in headers] == ["keccak.cuh"]
+    assert [p.name for p in units] == ["field_kernels.cu", "ligero_kernels.cu", "sha3_kernels.cu",
+                                       "zerocheck_kernels.cu"]
+    assert [p.name for p in headers] == ["babybear.cuh", "keccak.cuh"]
     path = _build._library_path(units, headers)
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
@@ -151,6 +153,26 @@ def test_ligero_wrappers_on_cuda_build_the_kernels_or_raise(entry, fresh_build, 
         else:
             ligero_dev.sha3_absorb(state, msg, 0, 1, 40)
     assert ligero_dev.LAUNCHES == before
+
+
+@pytest.mark.parametrize("entry", ["round_sums", "fold_planes"])
+def test_zerocheck_kernel_wrappers_on_cuda_build_the_kernels_or_raise(entry, fresh_build, monkeypatch):
+    """Z1's and Z2's wrappers on a CUDA tensor build the kernels or raise;
+    they never run their plain versions there, and count no launch."""
+    from zigz_tpu_torch.ops import dag_dev, ext4_dev
+    from zigz_tpu_torch.ops.symtrace import compile_device, trace_combiner
+
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    planes = torch.zeros((4, 8), dtype=torch.int64).as_subclass(_OnCuda)
+    before = dict(dag_dev.LAUNCHES), dict(ext4_dev.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        if entry == "round_sums":
+            trace = trace_combiner(lambda c, a, p: (c["x"] * a[0]) % p, ["x"], [3], 2013265921)
+            program = compile_device(trace.nodes, [trace.out], {"x": 0})
+            dag_dev.round_sums(program, program.constants(trace.consts), planes, 3)
+        else:
+            ext4_dev.fold_planes(planes, [1, 2, 3, 4], ext4_dev.FoldGroups([(1, 0, 1, 2, 3)]))
+    assert (dict(dag_dev.LAUNCHES), dict(ext4_dev.LAUNCHES)) == before
 
 
 def test_ligero_commits_on_cuda_raise_without_a_card(no_cuda):

@@ -17,6 +17,7 @@ FIXTURES = ROOT / "tests" / "fixtures"
 FORBIDDEN = ("jax", "jaxlib", "zigz_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "__graft_entry_torch__.py",
                                         ROOT / "scripts" / "torch_group_phases.py",
+                                        ROOT / "scripts" / "torch_zerocheck_kernels.py",
                                         ROOT / "tests" / "torch_group_checks.py"]
 
 
@@ -41,7 +42,8 @@ def test_sources_are_found():
             "zigz_tpu_torch/parallel/multihost.py", "zigz_tpu_torch/parallel/launch.py",
             "zigz_tpu_torch/parallel/dist.py", "zigz_tpu_torch/parallel/recovery.py",
             "zigz_tpu_torch/parallel/jobs.py", "zigz_tpu_torch/ops/ligero_mesh.py",
-            "zigz_tpu_torch/ops/batch_eval_dev.py", "__graft_entry_torch__.py",
+            "zigz_tpu_torch/ops/batch_eval_dev.py", "zigz_tpu_torch/ops/dag_dev.py",
+            "scripts/torch_zerocheck_kernels.py", "__graft_entry_torch__.py",
             "chip_smoke.py", "bench_torch.py", "tests/torch_group_checks.py"} <= names
     assert not (PORT / "_jaxfree.py").exists()
 

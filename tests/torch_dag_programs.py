@@ -1,0 +1,102 @@
+"""The zerocheck DAGs of a real prove, and the checks that hold the round-sum
+kernel's program (ops/symtrace.py ``compile_device``) to the plain lowering
+and to the JAX package, for tests/test_torch_dag_kernels*.py.
+
+``prove_dags(version)`` runs a small port prove on the CPU with every
+extension zerocheck recorded and stops right after the zerocheck phase
+(the batch evaluation and the openings do not change a DAG).  Each record
+holds both DAGs of a zerocheck, the round-0 one and the later-round one,
+with their row maps.  The DAG's structure does not depend on the
+challenges, so the checks trace the same combiner again with random ones.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import zigz_tpu_torch as zt
+from zigz_tpu.ops import symtrace as ref_symtrace
+from zigz_tpu.ops.babybear import np_from_mont, np_to_mont
+from zigz_tpu_torch.ops import dag_dev, symtrace, zerocheck_dev_ext
+from zigz_tpu_torch.prover import unified
+
+P = symtrace.P
+NOP = bytes([0x13, 0x00, 0x00, 0x00])
+
+
+class _ZerochecksDone(Exception):
+    pass
+
+
+def prove_dags(version: int) -> list:
+    """[(label, nodes, outs, row_of, degree, n_consts)] of every extension
+    zerocheck DAG of a 16-step NOP prove of ``version``, in prove order."""
+    dags = []
+    prove = zerocheck_dev_ext.GenericDeviceZerocheckExt.prove
+
+    def watched(self, transcript):
+        for lift, trace, row_of in zip((False, True), (self._probe1, self._probe2), self._row_maps()):
+            dags.append((f"v{version} zerocheck {len(dags) // 2} {'later rounds' if lift else 'round 0'}",
+                         trace.nodes, trace.outs, row_of, self.degree, len(trace.consts)))
+        return prove(self, transcript)
+
+    def stop(*_args, **_kwargs):
+        raise _ZerochecksDone
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(zerocheck_dev_ext.GenericDeviceZerocheckExt, "prove", watched)
+        m.setattr(unified, "prove_batch_eval", stop)
+        try:
+            zt.Prover(zt.BabyBear, seed=0, device="cpu", protocol_version=version).prove(
+                NOP * 16, 0x1000, None, 1 << 12, None, None)
+        except _ZerochecksDone:
+            pass
+    return dags
+
+
+def random_planes(rng, rows: int, width: int) -> np.ndarray:
+    """(rows, width) canonical uint64 with 0 and p - 1 among lo and hi."""
+    planes = rng.integers(0, P, size=(rows, width), dtype=np.uint64)
+    half = width // 2
+    planes[:, 0], planes[:, half] = 0, P - 1
+    if half > 1:
+        planes[:, 1], planes[:, half + 1] = P - 1, 0
+    return planes
+
+
+def check_program(nodes, outs, row_of, degree, consts, planes, eq_row=None):
+    """The program's reference interpreter against the plain lowering, at
+    every point and lane; returns (program, bound constants, reference sums)."""
+    program = symtrace.compile_device(nodes, outs, row_of)
+    bound = program.constants(consts)
+    dag_dev.block_threads(program, len(bound.table))  # the kernel's limit: raises where it does not fit
+    lanes, sums = symtrace._run_program_reference(program, bound, planes, degree, eq_row)
+    half = planes.shape[1] // 2
+    run = bound.plain_run()
+    lo = torch.from_numpy(planes[:, :half].view(np.int64))
+    plain = torch.stack(run(lo)).numpy().astype(np.uint64)
+    if eq_row is not None:
+        plain = plain * planes[eq_row, :half] % np.uint64(P)
+    np.testing.assert_array_equal(lanes[0], plain)  # t = 0, lane by lane
+    got = dag_dev.round_sums(program, bound, torch.from_numpy(planes.view(np.int64)), degree, eq=eq_row)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint64), sums)  # every point, summed
+    return program, bound, sums
+
+
+def jax_lanes(nodes, outs, row_of, consts, planes_lo: np.ndarray) -> np.ndarray:
+    """zigz_tpu's ``compile_device`` of each output, run by JAX on the CPU
+    over Montgomery planes and constants, converted out: (n_out, n).  Op by
+    op (``jax.disable_jit``): the same jnp ops, without XLA's compile of
+    each DAG, which costs seconds a hundred nodes on the CPU."""
+    import jax
+    import jax.numpy as jnp
+
+    planes_m = jnp.asarray(np_to_mont(planes_lo))
+    consts_m = jnp.asarray(np_to_mont(np.asarray(consts, dtype=np.uint64)))
+    col_names = tuple(sorted(row_of))
+    with jax.disable_jit():
+        return np.stack([np_from_mont(np.asarray(ref_symtrace.compile_device((tuple(nodes), o, col_names), row_of)(
+            planes_m, consts_m))).astype(np.uint64) for o in outs])
+

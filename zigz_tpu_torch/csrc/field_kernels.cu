@@ -25,22 +25,16 @@
 
 #include <cuda_runtime.h>
 
+#include "babybear.cuh"
+
 namespace {
+
+using zigz::kR2;
+using zigz::redc;
 
 constexpr int kThreadsPerBlock = 256;
 constexpr int64_t kMaxBlocks = 2147483647;  // gridDim.x limit; past it the loop strides
-constexpr uint32_t kP = 2013265921u;        // 15 * 2^27 + 1
-constexpr uint32_t kNegPInv = 0x77ffffffu;  // -p^-1 mod 2^32
-constexpr uint32_t kR2 = 1172168163u;       // 2^64 mod p
 constexpr int kChain = 8;
-
-// t * 2^-32 mod p for t < p * 2^32; the result is canonical.
-__device__ __forceinline__ uint32_t redc(uint64_t t) {
-  const uint32_t m = static_cast<uint32_t>(t) * kNegPInv;
-  // t + m * p < 2^33 * p < 2^64, and its low 32 bits are zero.
-  const uint32_t u = static_cast<uint32_t>((t + static_cast<uint64_t>(m) * kP) >> 32);
-  return u >= kP ? u - kP : u;  // u < 2p
-}
 
 __global__ void __launch_bounds__(kThreadsPerBlock)
 field_mul_chain_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,

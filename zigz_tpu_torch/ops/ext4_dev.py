@@ -21,15 +21,23 @@ the kernels as immediate arguments, with no upload and no read-back.
 
 Results are bit-equal to the host Ext4 and to the JAX functions
 (tests/test_torch_ext4.py).
+
+``fold_planes`` folds a whole zerocheck plane stack by one extension
+challenge in one launch of kernel Z2 (csrc/zerocheck_kernels.cu
+``ext_fold_kernel``) for a CUDA tensor, and by its plain version,
+``ext_fold_base_dev`` / ``ext_fold_dev`` and a concatenation, for a CPU
+tensor.  ``LAUNCHES`` counts Z2's launches.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import ctypes
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
+from . import _build
 from . import babybear as bb
 from .babybear import P
 
@@ -48,9 +56,16 @@ __all__ = [
     "ext_eq_table_dev",
     "ext_sum_dev",
     "ext_inv_dev",
+    "FoldGroups",
+    "fold_planes",
+    "LAUNCHES",
 ]
 
+# Kernel launches since the last reset; the plain version does not count.
+LAUNCHES = {"fold_planes": 0}
+
 W = 11  # X^4 = W (core/ext4.py)
+_R_MONT = (1 << 32) % P  # Montgomery radix mod p: Z2 takes r and W r in Montgomery form
 _SIGMA = pow(W, (P - 1) // 4, P)
 # Frobenius coordinate scalings sigma^(k*i), k = 0..3.
 _FROB = [[pow(_SIGMA, (k * i) % 4, P) for i in range(4)] for k in range(4)]
@@ -210,3 +225,86 @@ def ext_inv_dev(a4: torch.Tensor) -> torch.Tensor:
     n0 = (a[0] * b[0] % P + W * (((a[1] * b[3] + a[2] * b[2]) % P + a[3] * b[1] % P) % P)) % P
     n_inv = bb.inv(n0)
     return torch.stack([b[e] * n_inv % P for e in range(4)])
+
+
+# -- the fold of a whole plane stack: kernel Z2 ------------------------------
+
+class FoldGroups:
+    """The tables of a plane stack, for :func:`fold_planes`: ``table`` (G, 5)
+    int32 rows (kind, s0, s1, s2, s3); kind 0 is a base table in row s0,
+    kind 1 an extension table whose coordinate e lies in row s_e.  Folded
+    table g lands in rows e * G + g of the output (the all-extension
+    layout).  ``on`` uploads the table once per device."""
+
+    __slots__ = ("table", "n_rows", "_on")
+
+    def __init__(self, table):
+        t = np.ascontiguousarray(table, dtype=np.int32)
+        if t.ndim != 2 or t.shape[1] != 5 or not 1 <= t.shape[0] <= 65535:
+            raise ValueError(f"FoldGroups: expected (G, 5) rows with 1 <= G <= 65535, got {t.shape}")
+        kinds = t[:, 0]
+        if not np.isin(kinds, (0, 1)).all():
+            raise ValueError("FoldGroups: a kind is 0 (base) or 1 (extension)")
+        used = np.concatenate([t[kinds == 0, 1], t[kinds == 1, 1:].ravel()])
+        if (used < 0).any():
+            raise ValueError("FoldGroups: a source row is negative")
+        self.table = t
+        self.n_rows = int(used.max(initial=-1)) + 1
+        self._on: Dict[torch.device, torch.Tensor] = {}
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        t = self._on.get(device)
+        if t is None:
+            t = torch.from_numpy(self.table).to(device)
+            self._on[device] = t
+        return t
+
+
+def _fold_planes_plain(planes: torch.Tensor, r4, groups: FoldGroups) -> torch.Tensor:
+    """Plain version of Z2: the base tables by ``ext_fold_base_dev``, the
+    extension tables by ``ext_fold_dev``, concatenated in group order."""
+    t = groups.table
+    base, ext = np.flatnonzero(t[:, 0] == 0), np.flatnonzero(t[:, 0] == 1)
+    half = planes.shape[-1] // 2
+    out = torch.empty((4, t.shape[0], half), dtype=torch.int64, device=planes.device)
+    if base.size:
+        out[:, torch.from_numpy(base)] = ext_fold_base_dev(planes[torch.from_numpy(t[base, 1].astype(np.int64))], r4)
+    if ext.size:
+        rows = torch.from_numpy(np.ascontiguousarray(t[ext, 1:].T).astype(np.int64))  # (4, E)
+        out[:, torch.from_numpy(ext)] = ext_fold_dev(planes[rows], r4)
+    return out.reshape(4 * t.shape[0], half)
+
+
+def fold_planes(planes: torch.Tensor, r4, groups: FoldGroups) -> torch.Tensor:
+    """Fold every table of ``planes`` (rows, width) canonical int64 by the
+    extension scalar r: (4 G, width / 2) canonical int64 in the
+    all-extension layout of ``groups``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``zigz_ext_fold`` or raises (KernelBuildError, KernelLaunchError)."""
+    r = _scalar_ints(r4)
+    if planes.dtype != torch.int64 or planes.dim() != 2 or not planes.is_contiguous():
+        raise ValueError(f"fold_planes: expected a contiguous (rows, width) int64 tensor, "
+                         f"got {planes.dtype} {tuple(planes.shape)}")
+    rows, width = planes.shape
+    if width < 2 or width % 2:
+        raise ValueError(f"fold_planes: the width must be even and >= 2, got {width}")
+    if groups.n_rows > rows:
+        raise ValueError(f"fold_planes: the groups read {groups.n_rows} rows, the planes have {rows}")
+    if planes.device.type == "cpu":
+        return _fold_planes_plain(planes, r, groups)
+    if planes.device.type != "cuda":
+        raise ValueError(f"fold_planes: unsupported device {planes.device}")
+    _build.load()  # build, or raise, before anything touches the card
+    dev = planes.device
+    n_groups = groups.table.shape[0]
+    table = groups.on(dev)
+    out = torch.empty((4 * n_groups, width // 2), dtype=torch.int64, device=dev)
+    scalar = (ctypes.c_uint32 * 8)(*[v * _R_MONT % P for v in r], *[W * v * _R_MONT % P for v in r])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.launch("zigz_ext_fold", planes.data_ptr(), width, table.data_ptr(), n_groups, scalar,
+                      out.data_ptr(), stream)
+    LAUNCHES["fold_planes"] += 1
+    return out
+

@@ -35,12 +35,14 @@ seeds); it is intercepted via __array_function__ as a structural zero.
 
 from __future__ import annotations
 
+import heapq
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["TraceError", "trace_combiner", "compile_dag", "CombinerTrace"]
+__all__ = ["TraceError", "trace_combiner", "compile_dag", "CombinerTrace", "compile_device", "DagProgram",
+           "ProgramConstants"]
 
 P = 2013265921  # BabyBear
 
@@ -380,6 +382,244 @@ def compile_dag(nodes, outs, row_of: Dict[str, int], consts):
     run.num_ops = sum(1 for s in steps if s[0] in ("mul", "add", "sub", "red"))
     run.num_launches = run.num_ops + sum(1 for s in steps if s[0] == "mul")
     return run
+
+
+# ---------------------------------------------------------------------------
+# The encoded program of the round-sum kernel (csrc/zerocheck_kernels.cu)
+# ---------------------------------------------------------------------------
+#
+# Counterpart of zigz_tpu/ops/symtrace.py ``compile_device``, which jits the
+# DAG so that XLA fuses it into a few kernels.  Here the DAG becomes data: an
+# int32 instruction array that one hand-written kernel interprets, every
+# thread over its own slots.  An instruction is (op, dst slot, a, b); an
+# operand is ``index << 2 | kind``: a slot, a plane row (the column's value
+# at the thread's point, formed in the kernel) or an entry of the constant
+# table.  Slots hold Montgomery u32 values (x R mod p, R = 2^32) and every
+# op reduces, as the JAX package's uint32 lanes do; the round sums are
+# linear, so one conversion out of Montgomery form at the end is exact.
+
+OP_ADD, OP_SUB, OP_MUL = 0, 1, 2
+KIND_SLOT, KIND_ROW, KIND_CONST = 0, 1, 2
+_OPCODE = {_ADD: OP_ADD, _SUB: OP_SUB, _MUL: OP_MUL}
+
+R_MONT = (1 << 32) % P  # Montgomery radix mod p
+R_MONT_INV = pow(R_MONT, P - 2, P)
+_NEG_P_INV = (-pow(P, -1, 1 << 32)) % (1 << 32)  # -p^-1 mod 2^32
+_R2 = (1 << 64) % P
+
+
+class DagProgram:
+    """A traced DAG lowered for the round-sum kernel.
+
+    ``code`` (n, 4) int32 rows (op, dst, a, b); ``outs`` (n_out,) int32
+    operands; ``n_slots`` the slots a thread needs (a slot is reused after
+    its value's last use); ``n_rows`` the plane rows the program reads.  The
+    program depends only on the DAG's structure and the row map; this
+    prove's constants enter through :meth:`constants`.  ``nodes``,
+    ``out_nodes`` and ``row_of`` stay for the plain version
+    (:func:`compile_dag`)."""
+
+    __slots__ = ("code", "outs", "n_slots", "n_rows", "nodes", "out_nodes", "row_of",
+                 "_const_nodes", "_table_nodes", "counts", "_on")
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        """``code`` as an int32 tensor on ``device``, uploaded once."""
+        t = self._on.get(device)
+        if t is None:
+            t = torch.from_numpy(self.code).to(device)
+            self._on[device] = t
+        return t
+
+    def constants(self, consts) -> "ProgramConstants":
+        """This prove's constants (the trace's canonical ints) bound to the
+        program: the host folds every constant-only node once."""
+        return ProgramConstants(self, consts)
+
+    def _fold(self, consts) -> List[int]:
+        val: Dict[int, int] = {}
+        for i, op, a, b in self._const_nodes:
+            if op == _CONST:
+                val[i] = int(consts[a]) % P
+            elif op == _ZERO:
+                val[i] = 0
+            elif op == _ADD:
+                val[i] = (val[a] + val[b]) % P
+            elif op == _SUB:
+                val[i] = (val[a] - val[b]) % P
+            else:
+                val[i] = val[a] * val[b] % P
+        return [val[i] for i in self._table_nodes]
+
+
+class ProgramConstants:
+    """A program's constant table for one prove: ``table`` canonical ints,
+    ``montgomery`` the kernel's representation, uploaded once per device
+    (:meth:`on`); :meth:`plain_run` is the plain version's lowering of the
+    same DAG with the same constants."""
+
+    __slots__ = ("program", "consts", "table", "montgomery", "_on", "_run")
+
+    def __init__(self, program: DagProgram, consts):
+        self.program = program
+        self.consts = [int(c) for c in consts]
+        self.table = program._fold(self.consts)
+        self.montgomery = np.array([v * R_MONT % P for v in self.table], dtype=np.uint32)
+        self._on: Dict[torch.device, torch.Tensor] = {}
+        self._run = None
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        """The Montgomery table as an int32 tensor on ``device``, uploaded once."""
+        t = self._on.get(device)
+        if t is None:
+            t = torch.from_numpy(self.montgomery.view(np.int32)).to(device)
+            self._on[device] = t
+        return t
+
+    def plain_run(self):
+        if self._run is None:
+            p = self.program
+            self._run = compile_dag(p.nodes, p.out_nodes, p.row_of, self.consts)
+        return self._run
+
+
+def compile_device(nodes, outs, row_of: Dict[str, int]) -> DagProgram:
+    """Lower a traced DAG (``trace_combiner`` / ``trace_combiner_ext``) to
+    the round-sum kernel's program.
+
+    Nodes that read only constants are folded on the host per prove
+    (:meth:`DagProgram.constants`); the program keeps a constant operand
+    for each one that a computed node or an output reads.  A column is a
+    row operand, read where it is used.  Computed nodes run in trace order,
+    and each takes the lowest free slot after its operands' last uses have
+    freed theirs.  No cache: the caller compiles once per prove."""
+    n_nodes = len(nodes)
+    binary = (_ADD, _SUB, _MUL)
+    live = [False] * n_nodes
+    for o in outs:
+        live[o] = True
+    for i in range(n_nodes - 1, -1, -1):
+        op, a, b = nodes[i]
+        if live[i] and op in binary:
+            live[a] = live[b] = True
+    const_only = [False] * n_nodes
+    const_nodes = []
+    for i, (op, a, b) in enumerate(nodes):
+        if not live[i]:
+            continue
+        if op in (_CONST, _ZERO) or (op in binary and const_only[a] and const_only[b]):
+            const_only[i] = True
+            const_nodes.append((i, op, a, b))
+    computed = [i for i, (op, _a, _b) in enumerate(nodes) if live[i] and op in binary and not const_only[i]]
+    last_use = [-1] * n_nodes
+    for i in computed:
+        _op, a, b = nodes[i]
+        last_use[a] = last_use[b] = i
+    for o in outs:
+        last_use[o] = n_nodes  # outputs keep their slots to the end
+
+    table_at: Dict[int, int] = {}
+    rows_read = []
+
+    def operand(x: int, slot_of: Dict[int, int]) -> int:
+        op, a, _b = nodes[x]
+        if const_only[x]:
+            if x not in table_at:
+                table_at[x] = len(table_at)
+            return table_at[x] << 2 | KIND_CONST
+        if op == _COL:
+            rows_read.append(row_of[a])
+            return row_of[a] << 2 | KIND_ROW
+        return slot_of[x] << 2 | KIND_SLOT
+
+    slot_of: Dict[int, int] = {}
+    free: List[int] = []
+    n_slots = 0
+    code = []
+    counts = {"mul": 0, "add": 0, "sub": 0}
+    for i in computed:
+        op, a, b = nodes[i]
+        ins = (_OPCODE[op], operand(a, slot_of), operand(b, slot_of))
+        for x in {a, b}:
+            if x in slot_of and last_use[x] == i:
+                heapq.heappush(free, slot_of.pop(x))
+        dst = heapq.heappop(free) if free else n_slots
+        n_slots = max(n_slots, dst + 1)
+        slot_of[i] = dst
+        code.append((ins[0], dst, ins[1], ins[2]))
+        counts[{_ADD: "add", _SUB: "sub", _MUL: "mul"}[op]] += 1
+    out_ops = [operand(o, slot_of) for o in outs]
+    counts["row_reads"] = len(rows_read)
+
+    prog = DagProgram()
+    prog.code = np.array(code, dtype=np.int32).reshape(-1, 4)
+    prog.outs = np.array(out_ops, dtype=np.int32)
+    prog.n_slots = n_slots
+    prog.n_rows = max(rows_read, default=-1) + 1
+    prog.nodes, prog.out_nodes, prog.row_of = nodes, tuple(outs), dict(row_of)
+    prog._const_nodes = const_nodes
+    prog._table_nodes = sorted(table_at, key=table_at.get)
+    prog.counts = counts
+    prog._on = {}
+    return prog
+
+
+def _redc_np(t: np.ndarray) -> np.ndarray:
+    """Montgomery reduction t R^-1 mod p of uint64 t < p 2^32, as the
+    kernel's ``redc``."""
+    m = ((t & np.uint64(0xFFFFFFFF)) * np.uint64(_NEG_P_INV)) & np.uint64(0xFFFFFFFF)
+    u = (t + m * np.uint64(P)) >> np.uint64(32)
+    return np.where(u >= P, u - np.uint64(P), u)
+
+
+def _run_program_reference(program: DagProgram, consts: ProgramConstants, planes: np.ndarray,
+                           degree: int, eq_row: int = None):
+    """The kernel's algorithm in numpy, step for step: for each point t in
+    (0, 2, .., degree) and every lane j < width / 2, each row read is
+    lo + t (hi - lo) mod p taken into Montgomery form, the program runs over
+    its slots, the outputs (times the eq row's value, for a base-field DAG)
+    sum into uint64.  ``planes`` (rows, width) canonical uint64.  Returns
+    ((degree, n_out, width / 2) canonical lane values, (degree, n_out)
+    canonical sums).  Used by the tests only."""
+    planes = np.asarray(planes, dtype=np.uint64)
+    half = planes.shape[1] // 2
+    lo, hi = planes[:, :half], planes[:, half:]
+    delta = np.where(hi >= lo, hi - lo, hi + np.uint64(P) - lo)
+    table = consts.montgomery.astype(np.uint64)
+    p64 = np.uint64(P)
+    n_out = len(program.outs)
+    lanes = np.zeros((degree, n_out, half), dtype=np.uint64)
+    sums = np.zeros((degree, n_out), dtype=np.uint64)
+    for k in range(degree):
+        t = np.uint64(0 if k == 0 else k + 1)
+        point_m = _redc_np(((lo + t * delta) % p64) * np.uint64(_R2))
+        slots: List[np.ndarray] = [None] * program.n_slots
+
+        def fetch(opd: int) -> np.ndarray:
+            kind, idx = opd & 3, opd >> 2
+            if kind == KIND_SLOT:
+                return slots[idx]
+            if kind == KIND_ROW:
+                return point_m[idx]
+            return np.full(half, table[idx], dtype=np.uint64)
+
+        for op, dst, a, b in program.code.tolist():
+            x, y = fetch(a), fetch(b)
+            if op == OP_ADD:
+                s = x + y
+                slots[dst] = np.where(s >= p64, s - p64, s)
+            elif op == OP_SUB:
+                slots[dst] = np.where(x >= y, x - y, x + p64 - y)
+            else:
+                slots[dst] = _redc_np(x * y)
+        for o, opd in enumerate(program.outs.tolist()):
+            v = fetch(opd)
+            if eq_row is not None:
+                v = _redc_np(v * point_m[eq_row])
+            lanes[k, o] = v
+            sums[k, o] = v.sum(dtype=np.uint64)  # below 2^52 for 2^21 lanes
+    canon = _redc_np(lanes)  # out of Montgomery form: x R * R^-1
+    sums_c = np.array([[int(s) % P * R_MONT_INV % P for s in row] for row in sums], dtype=np.uint64)
+    return canon, sums_c
 
 
 # ---------------------------------------------------------------------------

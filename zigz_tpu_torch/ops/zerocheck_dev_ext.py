@@ -3,20 +3,22 @@
 Counterpart of zigz_tpu/ops/zerocheck_dev_ext.py and device twin of
 ``NativeZerocheckExtProver`` (ops/zerocheck_native_ext.py, itself the C++
 twin of ``proofs.zerocheck.ZerocheckExtProver``): the combiner is traced
-once (ops/symtrace.py ``trace_combiner_ext``) and the resulting base-op DAG
-is evaluated with torch ops over canonical int64 planes (ops/symtrace.py
-``compile_dag``, ops/ext4_dev.py).  All three provers emit byte-identical
+once (ops/symtrace.py ``trace_combiner_ext``), the resulting base-op DAG is
+lowered to the round-sum kernel's program (``compile_device``), and each
+round on a card is two launches and one small read-back: Z1 gives the
+round's sums at every point over the whole width (ops/dag_dev.py
+``round_sums``), Z2 folds every table by the round's challenge into the
+next round's layout (ops/ext4_dev.py ``fold_planes``), both in
+csrc/zerocheck_kernels.cu.  All three provers emit byte-identical
 transcripts and proofs (tests/test_torch_zerocheck.py).
 
 Every challenge of the v2 zerochecks is drawn from BabyBear^4, so the
 tables turn into 4-coordinate extension tables after the first fold.  The
-fold by a round's challenge is fused into the next round's sweep (one
-device step per round, one small read-back of the round sums), the
-Fiat-Shamir transcript stays on the host between rounds, and the rounds at
-or below ``host_tail`` width finish on the host: the planes come down once
-and the same fold and sweep go on over host tensors (the JAX class runs
-the numpy prover's round body there).  The tail is part of the algorithm
-and does not change the bytes.
+Fiat-Shamir transcript stays on the host between rounds.  Rounds at or
+below ``host_tail`` width (none by default) finish on the host: the planes
+come down once and the same fold and sweep go on over host tensors,
+through the plain versions of Z1 and Z2.  The tail does not change the
+bytes.
 
 There is no size gate and no environment switch here: the caller
 (``ZerocheckExtProver`` with a ``device``) sends every width n >= 2
@@ -24,7 +26,8 @@ through this class, and a ``TraceError`` or a failed launch raises.
 ``dev_columns`` names columns that already lie on the device as slices of
 a commitment's resident matrix (``DeviceColumnRef``), so only the columns
 that are in no commitment are uploaded.  ``DEVICE_PROVES`` counts the
-zerochecks proven here; ``COLUMNS`` counts their base columns by origin.
+zerochecks proven here and the launches of Z1 and Z2 they made;
+``COLUMNS`` counts their base columns by origin.
 
 Plane layouts (rows of one (rows, width) int64 tensor), chosen so that
 every fold is a whole-stack operation with no transposes:
@@ -45,22 +48,22 @@ import torch
 
 from ..core.ext4 import Ext4, challenge_ext, ext_from_ints
 from ..device import resolve_device
-from . import ext4_dev
+from . import dag_dev, ext4_dev
 from .babybear import P
-from .symtrace import TraceError, compile_dag, trace_combiner_ext
+from .symtrace import TraceError, compile_device, trace_combiner_ext
 
-__all__ = ["GenericDeviceZerocheckExt", "HOST_TAIL_EXT", "DEVICE_PROVES", "COLUMNS", "reset_counters"]
+__all__ = ["GenericDeviceZerocheckExt", "HOST_TAIL_EXT", "DEVICE_PROVES", "COLUMNS", "reset_counters", "fold_groups"]
 
-# Remaining-width threshold to finish the rounds on the host.
-HOST_TAIL_EXT = 1 << 12
+# Remaining-width threshold to finish the rounds on the host.  1: every
+# round of a card zerocheck runs on the card, two launches a round; with the
+# threshold at 2^12 the narrow rounds ran compile_dag's torch ops on the host,
+# and a v2 prove of 2^20 NOP steps spent 3.42-3.55 s in its zerochecks
+# against 1.17-1.30 s (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+HOST_TAIL_EXT = 1
 
-# Widest slice of the half-tables that one DAG pass evaluates (at all its
-# ``degree`` points at once); wider rounds run in chunks, so the sweep's
-# transient stays bounded.
-SWEEP_CHUNK = 1 << 19
-
-# Zerochecks proven by this class since the last reset, and where their
-# base columns came from: a commitment's resident matrix, or an upload.
+# Zerochecks proven by this class since the last reset, the launches of Z1
+# and Z2 they made, and where their base columns came from: a commitment's
+# resident matrix, or an upload.
 DEVICE_PROVES = {"count": 0, "sweep_launches": 0}
 COLUMNS = {"resident": 0, "uploaded": 0}
 
@@ -70,33 +73,13 @@ def reset_counters() -> None:
     COLUMNS.update(resident=0, uploaded=0)
 
 
-def _round_sums(dag, planes: torch.Tensor, degree: int):
-    """g(0), g(2..degree) coordinate sums of eq * C over the current
-    variable's half-split: ((degree, 4) canonical int64, DAG passes made).
-    g(1) follows from the sumcheck identity on the host.  A base-field DAG
-    (ops/zerocheck_gen.py) has one output and gives (degree, 1).
-
-    The ``degree`` evaluation points are laid side by side along the width
-    and go through the DAG in ONE pass: the sweep is bound by the number of
-    launches, not by their width, so this divides its cost by ``degree``."""
-    half = planes.shape[-1] // 2
-    total, passes = None, 0
-    for s in range(0, half, SWEEP_CHUNK):
-        lo = planes[:, s : min(s + SWEEP_CHUNK, half)]
-        hi = planes[:, half + s : half + min(s + SWEEP_CHUNK, half)]
-        points = [lo]
-        if degree >= 2:
-            delta = (hi - lo) % P
-            cur = hi
-            for _t in range(2, degree + 1):
-                cur = (cur + delta) % P
-                points.append(cur)
-        out = torch.stack(dag(torch.cat(points, dim=-1)))  # (4, degree * chunk)
-        # a width below 2^32 sums below 2^63
-        part = out.view(out.shape[0], len(points), -1).sum(dim=-1).t() % P
-        total = part if total is None else (total + part) % P
-        passes += 1
-    return total, passes
+def fold_groups(B: int, E: int):
+    """Where each of the G = B + E + 1 tables lies before a fold, for
+    ``ext4_dev.fold_planes``: (round-0 layout, all-extension layout)."""
+    G = B + E + 1
+    first = ext4_dev.FoldGroups([(0, i, 0, 0, 0) for i in range(B)]
+                                + [(1, *(B + e * (E + 1) + j for e in range(4))) for j in range(E + 1)])
+    return first, ext4_dev.FoldGroups([(1, *(e * G + i for e in range(4))) for i in range(G)])
 
 
 class GenericDeviceZerocheckExt:
@@ -119,7 +102,7 @@ class GenericDeviceZerocheckExt:
         self.num_alphas = num_alphas if num_alphas is not None else len(columns)
         self.columns = columns
         self.dev_columns = dev_columns or {}
-        self.host_tail = max(2, host_tail if host_tail is not None else HOST_TAIL_EXT)
+        self.host_tail = max(1, host_tail if host_tail is not None else HOST_TAIL_EXT)
         self.base_names = sorted(n for n, c in columns.items() if not isinstance(c, Ext4))
         self.ext_names = sorted(n for n, c in columns.items() if isinstance(c, Ext4))
         widths = {(c.shape[-1] if isinstance(c, Ext4) else np.shape(c)[-1]) for c in columns.values()}
@@ -202,11 +185,14 @@ class GenericDeviceZerocheckExt:
             raise TraceError("combiner structure depends on challenge values")
 
         row_of1, row_of2 = self._row_maps()
-        dag1 = compile_dag(tr1.nodes, tr1.outs, row_of1, tr1.consts)
-        dag2 = compile_dag(tr2.nodes, tr2.outs, row_of2, tr2.consts)
+        program1 = compile_device(tr1.nodes, tr1.outs, row_of1)
+        program2 = compile_device(tr2.nodes, tr2.outs, row_of2)
+        consts1, consts2 = program1.constants(tr1.consts), program2.constants(tr2.consts)
 
         B, E = len(self.base_names), len(self.ext_names)
         G = B + E + 1
+        first_groups, ext_groups = fold_groups(B, E)
+        launches_before = dag_dev.LAUNCHES["round_sums"] + ext4_dev.LAUNCHES["fold_planes"]
         planes = self._assemble(taus)
 
         round_evals: List[List[Ext4]] = []
@@ -215,7 +201,7 @@ class GenericDeviceZerocheckExt:
 
         def emit_round(sums: torch.Tensor):
             nonlocal claim
-            sums_np = sums.cpu().numpy()
+            sums_np = sums.numpy()
             g0 = ext_from_ints([int(x) for x in sums_np[0]])
             evals_this_round = [g0, claim - g0]
             for t in range(2, self.degree + 1):
@@ -230,32 +216,18 @@ class GenericDeviceZerocheckExt:
 
         def fold(planes: torch.Tensor, r, first: bool) -> torch.Tensor:
             """Fold every table by r -> the all-extension layout (4 G, width / 2)."""
-            r4 = r.to_ints()
-            if first:
-                base = ext4_dev.ext_fold_base_dev(planes[:B], r4)  # (4, B, half)
-                ext = ext4_dev.ext_fold_dev(planes[B:].view(4, E + 1, -1), r4)
-                folded = torch.cat([base, ext], dim=1)
-            else:
-                folded = ext4_dev.ext_fold_dev(planes.view(4, G, -1), r4)
-            return folded.reshape(4 * G, -1)
+            return ext4_dev.fold_planes(planes, r.to_ints(), first_groups if first else ext_groups)
 
         # Round 0 on the round-0 layout; every later round folds by the
         # pending challenge and sweeps the halved, all-extension tables.  At
         # ``host_tail`` width the planes come down once and the same loop
-        # goes on over host tensors: a narrow round costs a launch per DAG
-        # op wherever it runs, and the host issues them faster than it can
-        # queue them on a card.
-        sums, passes = _round_sums(dag1, planes, self.degree)
-        launches = dag1.num_launches * passes
-        r = emit_round(sums)
+        # goes on over host tensors.
+        r = emit_round(dag_dev.round_sums(program1, consts1, planes, self.degree))
         for rnd in range(1, num_vars):
             if n >> rnd <= self.host_tail and planes.device.type != "cpu":
                 planes = planes.cpu()
             planes = fold(planes, r, first=rnd == 1)
-            sums, passes = _round_sums(dag2, planes, self.degree)
-            if planes.device.type != "cpu":
-                launches += dag2.num_launches * passes
-            r = emit_round(sums)
+            r = emit_round(dag_dev.round_sums(program2, consts2, planes, self.degree))
         final = ext4_dev.ext_from_device(fold(planes, r, first=num_vars == 1)).reshape(4, G)
         # "__"-prefixed tables (eq, public MLEs) are verifier-computable: no
         # terminal evaluations are emitted for them.
@@ -265,7 +237,8 @@ class GenericDeviceZerocheckExt:
         for name in sorted(column_evals):
             absorb_ext(transcript, column_evals[name])
         DEVICE_PROVES["count"] += 1
-        DEVICE_PROVES["sweep_launches"] += launches
+        DEVICE_PROVES["sweep_launches"] += (dag_dev.LAUNCHES["round_sums"] + ext4_dev.LAUNCHES["fold_planes"]
+                                            - launches_before)
         return ZerocheckProof(
             num_vars=num_vars,
             degree=self.degree,

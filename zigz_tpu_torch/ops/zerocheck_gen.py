@@ -3,16 +3,17 @@ symtrace.
 
 Counterpart of zigz_tpu/ops/zerocheck_gen.py and device twin of
 ``proofs.zerocheck.ZerocheckProver``: the call site's own numpy combiner is
-traced (ops/symtrace.py ``trace_combiner``), the DAG is lowered to torch ops
-over canonical int64 planes (``compile_dag``, the lowering of the extension
-prover with one output instead of four), and the rounds run on the device:
+traced (ops/symtrace.py ``trace_combiner``), the DAG is lowered to the
+round-sum kernel's program (``compile_device``, as in the extension prover
+with one output instead of four), and the rounds run on the device:
 
 * one (C, n) u32 upload of all columns;
 * eq(tau, .) built on the device from the tau challenges;
-* per round, g(0) and g(2..degree) from one DAG pass with the evaluation
-  points side by side (``zerocheck_dev_ext._round_sums``) - g(1) follows
-  from the running claim as in the host prover - and one ``fold_msb`` of the
-  whole stack;
+* per round, g(0) and g(2..degree) of eq * C from one launch of kernel Z1
+  (ops/dag_dev.py ``round_sums``, the eq row passed beside the DAG, which
+  leaves it out) - g(1) follows from the running claim as in the host
+  prover - and one ``fold_msb`` of the whole stack in torch ops (a few
+  launches a round; the extension prover's fold kernel Z2 is not used);
 * under a ``group`` (parallel/multihost.py ``TraceGroup``) the stack is cut
   cyclically over the ranks (parallel/dist.py) and each round's sums cross
   them in one all_reduce;
@@ -42,10 +43,10 @@ import torch
 from ..core.hash import FiatShamirTranscript
 from ..device import resolve_device
 from ..parallel import dist
+from . import dag_dev
 from .babybear import P
 from .mle import fold_msb
-from .symtrace import TraceError, compile_dag, trace_combiner
-from .zerocheck_dev_ext import _round_sums
+from .symtrace import TraceError, compile_device, trace_combiner
 
 __all__ = ["GenericDeviceZerocheck", "eq_table_device", "HOST_TAIL", "DEVICE_PROVES"]
 
@@ -53,7 +54,7 @@ __all__ = ["GenericDeviceZerocheck", "eq_table_device", "HOST_TAIL", "DEVICE_PRO
 HOST_TAIL = 1 << 12
 
 # Zerochecks proven by this class since the last reset, and the launches of
-# their DAG sweeps on the device.
+# Z1 they made.
 DEVICE_PROVES = {"count": 0, "sweep_launches": 0}
 
 
@@ -120,11 +121,8 @@ class GenericDeviceZerocheck:
         eq_row = len(self.names)
         row_of = {name: i for i, name in enumerate(self.names)}
         row_of["__eq__"] = eq_row
-        dag_c = compile_dag(tr.nodes, [tr.out], row_of, tr.consts)
-
-        def dag(planes):
-            """eq * C, the zerocheck's summand: one more product and reduction."""
-            return [(dag_c(planes)[0] * planes[eq_row]).remainder_(P)]
+        program = compile_device(tr.nodes, [tr.out], row_of)
+        consts = program.constants(tr.consts)
 
         # Under a group a table wider than the tail is cut cyclically over
         # the ranks: the half sums and the fold are local, the sums of a
@@ -142,7 +140,7 @@ class GenericDeviceZerocheck:
         round_evals: List[List[int]] = []
         rs: List[int] = []
         claim = 0
-        launches = 0
+        launches_before = dag_dev.LAUNCHES["round_sums"]
         host_tables = None
         while len(rs) < num_vars:
             if host_tables is None and n >> len(rs) <= self.host_tail:
@@ -152,12 +150,10 @@ class GenericDeviceZerocheck:
             if host_tables is not None:
                 evals_this_round = host.round_values(host_tables, alphas, claim, p)
             else:
-                sums, passes = _round_sums(dag, planes, self.degree)
-                if planes.device.type != "cpu":
-                    launches += (dag_c.num_launches + 2) * passes
+                sums = dag_dev.round_sums(program, consts, planes, self.degree, eq=eq_row)
                 if sharded:
-                    sums = dist.all_reduce_sum(group, sums) % p
-                sums = [int(x) for x in sums[:, 0].cpu()]
+                    sums = dist.all_reduce_sum(group, sums.to(planes.device)).cpu() % p
+                sums = [int(x) for x in sums[:, 0]]
                 evals_this_round = [sums[0], (claim - sums[0]) % p] + sums[1:]
             round_evals.append(evals_this_round)
             for g in evals_this_round:
@@ -178,7 +174,7 @@ class GenericDeviceZerocheck:
         for name in sorted(column_evals):
             transcript.append_u64(column_evals[name])
         DEVICE_PROVES["count"] += 1
-        DEVICE_PROVES["sweep_launches"] += launches
+        DEVICE_PROVES["sweep_launches"] += dag_dev.LAUNCHES["round_sums"] - launches_before
         return ZerocheckProof(
             num_vars=num_vars,
             degree=self.degree,
