@@ -24,7 +24,13 @@ the last line:
      all started together, sm_90a) and the host C++ runtime from
      zigz_tpu_torch/runtime/ (one g++ per library, all started together);
      count the Keccak permutation's integer instructions in the built
-     library's SASS (``cuobjdump -sass``), for the kernels' bounds.
+     library's SASS (``cuobjdump -sass``), for the kernels' bounds.  Then
+     Z1's generated kernels: the programs of the v2 prove (v3's and v4's are
+     the same), captured from a 16-step prove on the CPU
+     (``capture_zerocheck_specs``), one nvcc each into
+     build/zigz_tpu_torch/dag/, all started together; they build while
+     phases 2 to 5 run, and before phase 6 each program's nvcc seconds,
+     registers and spill bytes (``-Xptxas -v``) are printed.
   2. each kernel against its plain PyTorch version on the card, digests
      equal to the byte (tolerance 0), kernel and plain times by CUDA events:
      K1 on 43 * 2^20 random canonical values (the leaf level of a
@@ -84,7 +90,9 @@ the last line:
      both commit paths must be "stream-dev", the count of zerochecks
      proven by GenericDeviceZerocheckExt must equal the count of zerocheck
      proofs in the proof, and the Lasso device rounds must be > 0.  One
-     line per case prints zerochecks_s, lasso_s, total_s, those counts,
+     line per case prints zerochecks_s, dag_build_s (its wait on nvcc for
+     Z1's generated kernels, 0 once phase 1 built them), zerocheck_host_s
+     (its host tracing and lowering), lasso_s, total_s, those counts,
      the columns read from the resident matrices against those uploaded,
      the DAG sweep's launches and peak device memory, the advice planes
      built on the device (148 at 2^20), the build time of each twin and
@@ -104,7 +112,8 @@ the last line:
      NOP steps, for the fibonacci guest (60,013 steps) and at 2^20 NOP
      steps: pinned digest, Accept, no SHA3 kernel launched, the Poseidon2
      permutation calls.
- 9b. the zerocheck kernels (csrc/zerocheck_kernels.cu; they replace the
+ 9b. the zerocheck kernels (Z1 generated for each program around
+     csrc/dag_round.cuh, Z2 in csrc/zerocheck_kernels.cu; they replace the
      JAX package's XLA-fused jit, not a Pallas kernel) against their plain
      versions on the same card tensors, values equal (tolerance 0), on the
      DAGs of phase 6's 2^20 v2 prove traced with random challenges
@@ -113,7 +122,9 @@ the last line:
      program at 2^19, the smallest DAG at 2^20, 64 and 2, and phase 12's
      base-field grand product with its eq row at 2^20; Z2
      ``ext4_dev.fold_planes`` from the round-0 layout at 2^20 and from the
-     all-extension layout at 2^19.  Times by CUDA events; Z1's bound from
+     all-extension layout at 2^19; then Z1 on every distinct program of
+     the prove once, at the widest width the prove gives it, each with its
+     build's nvcc seconds, registers and spills.  Times by CUDA events; Z1's bound from
      the DAG's multiplies and adds (the multiply chain's integer
      instructions a multiply, from its SASS, and 3 an add) over the INT32
      rate, against the planes' bytes; Z2's from its bytes.  No PyTorch
@@ -252,10 +263,45 @@ def make_grand_product(tau: int, gamma: int):
 
 def zerocheck_spec(zc) -> dict:
     """What the zerocheck kernels' phase needs of a GenericDeviceZerocheckExt:
-    its combiner, tables, degree and row maps (no column data)."""
+    its combiner, tables, degree, row maps and programs (no column data)."""
     return dict(combiner=zc.combiner, base_names=list(zc.base_names), ext_names=list(zc.ext_names),
                 degree=zc.degree, num_alphas=zc.num_alphas, row_maps=zc._row_maps(),
-                nodes=len(zc._probe2.nodes), n=zc.n, host_tail=zc.host_tail)
+                nodes=len(zc._probe2.nodes), n=zc.n, host_tail=zc.host_tail, programs=zc.programs)
+
+
+class _ZerochecksDone(Exception):
+    pass
+
+
+def capture_zerocheck_specs(version: int = 2) -> list:
+    """``zerocheck_spec`` of every extension zerocheck of a 16-step NOP
+    prove of ``version`` on the CPU, stopped after its zerochecks: the DAGs'
+    structure is the same at every width, so their programs are those of a
+    prove on the card, and nothing is built for the card here."""
+    import zigz_tpu_torch as zt
+    from zigz_tpu_torch.ops import zerocheck_dev_ext
+    from zigz_tpu_torch.prover import unified
+
+    specs = []
+    cls = zerocheck_dev_ext.GenericDeviceZerocheckExt
+    prove, batch_eval = cls.prove, unified.prove_batch_eval
+
+    def watched(self, transcript):
+        specs.append(zerocheck_spec(self))
+        return prove(self, transcript)
+
+    def stop(*_args, **_kwargs):
+        raise _ZerochecksDone
+
+    cls.prove, unified.prove_batch_eval = watched, stop
+    try:
+        zt.Prover(zt.BabyBear, seed=0, device="cpu", protocol_version=version).prove(
+            NOP * 16, 0x1000, None, 1 << 12, None, None)
+    except _ZerochecksDone:
+        pass
+    finally:
+        cls.prove, unified.prove_batch_eval = prove, batch_eval
+    return specs
 
 
 def card_zerocheck_launches(n: int, host_tail: int) -> int:
@@ -277,9 +323,12 @@ def zerocheck_kernel_phase(specs, dev, max_sm_mhz: float, mul_instr: float, add_
     Z1: the largest DAG's round-0 program at width 2^20 and its later-round
     program at 2^19 (the shapes of the 2^20 prove), the smallest DAG at
     2^20, 64 and 2, and the base-field grand product of phase 12 with its eq
-    row at 2^20, each traced with random extension (or base) challenges.
-    Z2: a fold of the largest zerocheck's tables from the round-0 layout at
-    2^20 and from the all-extension layout at 2^19.  Z1's bound is the
+    row at 2^20, each traced with random extension (or base) challenges;
+    then every distinct program of the prove once, at the widest width the
+    prove gives it (``z1_programs``).  Each Z1 entry carries its generated
+    kernel's build (``build_report``).  Z2: a fold of the largest
+    zerocheck's tables from the round-0 layout at 2^20 and from the
+    all-extension layout at 2^19.  Z1's bound is the
     larger of its field operations (multiplies x ``mul_instr`` and adds and
     subtracts x ``add_instr`` integer instructions a lane-point, over 132 SMs
     x 64 INT32 lanes x the maximum clock) and the planes' bytes read once;
@@ -332,19 +381,17 @@ def zerocheck_kernel_phase(specs, dev, max_sm_mhz: float, mul_instr: float, add_
         rows, width = planes.shape
         c = program.counts
         entry = dict(shape=f"{tag}: {len(program.code)} instructions ({c['mul']} mul, {c['add']} add, "
-                           f"{c['sub']} sub, {c['row_reads']} row reads), {program.n_slots} slots, "
-                           f"{threads_of(program, consts)} threads a block, ({rows}, {width}) planes, degree {degree}",
+                           f"{c['sub']} sub, {c['row_reads']} row reads), {program.n_rows} rows, "
+                           f"{len(consts.table)} constants, ({rows}, {width}) planes, degree {degree}",
                      max_abs_err=err,
                      ms=event_ms(lambda: dag_dev.round_sums(program, consts, planes, degree, eq), reps),
                      plain_ms=event_ms(lambda: dag_dev.plain_round_sums(program, consts, planes, degree, eq), 1),
                      **bound(width // 2 * degree * (c["mul"] * mul_instr + (c["add"] + c["sub"]) * add_instr),
-                             rows * width * 8))
+                             rows * width * 8),
+                     build=build_report(program.kernel))
         log(f"phase 9b Z1 {entry['shape']}: kernel == plain (max err {err}); kernel {entry['ms']} ms, "
-            f"plain {entry['plain_ms']} ms, bound {entry['bound_ms']} ms by {entry['bound_by']}")
+            f"plain {entry['plain_ms']} ms, bound {entry['bound_ms']} ms by {entry['bound_by']}; {entry['build']}")
         return entry
-
-    def threads_of(program, consts):
-        return dag_dev.block_threads(program, len(consts.table))
 
     def check_z2(tag, planes, groups):
         r4 = ext_values(1)[0].to_ints()
@@ -399,7 +446,36 @@ def zerocheck_kernel_phase(specs, dev, max_sm_mhz: float, mul_instr: float, add_
     z1.append(check_z1("base-field grand product x eq", program, program.constants(tr.consts),
                        planes_of(len(names) + 1, 1 << 20), 4, eq=len(names)))
     torch.cuda.empty_cache()
-    return {"z1": z1, "z2": z2}
+
+    # Every distinct program of the prove (equal programs share one kernel)
+    # once, at the widest width the prove gives it.
+    widest = {}
+    for spec in specs:
+        B, E = len(spec["base_names"]), len(spec["ext_names"])
+        layouts = ((B + 4 * (E + 1), spec["n"]), (4 * (B + E + 1), spec["n"] // 2))
+        for program, (rows, width) in zip(spec["programs"], layouts):
+            key = dag_dev.prepare(program).key
+            if width >= 2 and width > widest.get(key, (0, 0, 0))[2]:
+                widest[key] = (spec, program, width, rows)
+    every = []
+    for spec, program, width, rows in widest.values():
+        tr = trace_combiner_ext(spec["combiner"], spec["base_names"], spec["ext_names"],
+                                ext_values(spec["num_alphas"]), P, lift_base=program is spec["programs"][1])
+        if tr.signature[0] != tuple(program.nodes):
+            raise AssertionError("a zerocheck's DAG changed with its challenges")
+        every.append(check_z1(f"program {dag_dev.prepare(program).key}", program, program.constants(tr.consts),
+                              planes_of(rows, width), spec["degree"], reps=1))
+        torch.cuda.empty_cache()
+    return {"z1": z1, "z2": z2, "z1_programs": every}
+
+
+def build_report(build) -> dict:
+    """A generated kernel's build: nvcc seconds in this process (0 when the
+    library was reused), registers and spill bytes a thread (ptxas)."""
+    from zigz_tpu_torch.ops import _build
+
+    build.wait()
+    return dict(key=build.key, nvcc_s=build.build_s, **_build.ptxas_report(build.log))
 
 
 def group_phases(pinned) -> dict:
@@ -599,6 +675,19 @@ def main() -> int:
     for line in kernels.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+
+    # Z1 is generated for each DAG program: the programs of the v2-v4 proves
+    # (the same ones), captured from a 16-step prove on the CPU, one nvcc
+    # each, all started now; they build while the v1 phases run, and their
+    # report is printed before phase 6.
+    z1_t0 = time.perf_counter()
+    z1_builds = {}
+    for spec in capture_zerocheck_specs(2):
+        for program in spec["programs"]:
+            build = dag_dev.prepare(program)
+            z1_builds.setdefault(build.key, (build, program))
+    log(f"phase 1 Z1: {len(z1_builds)} distinct programs captured in {time.perf_counter() - z1_t0:.1f} s, "
+        f"their nvcc processes started together")
 
     # Integer instructions of one Keccak-f[1600], from the SASS of K2 (a
     # straight-line kernel: one full-state permutation per thread).
@@ -952,6 +1041,14 @@ def main() -> int:
     del data, program
     torch.cuda.empty_cache()
 
+    # -- phase 1, Z1's generated kernels: wait for them -----------------------
+    t0 = time.perf_counter()
+    for build, program in sorted(z1_builds.values(), key=lambda b: len(b[1].code)):
+        log(f"phase 1 Z1 generated, {len(program.code)} instructions, {len(program.outs)} outputs: "
+            f"{build_report(build)}")
+    log(f"phase 1 Z1: {len(z1_builds)} programs built {time.perf_counter() - z1_t0:.1f} s after their start "
+        f"(waited {time.perf_counter() - t0:.1f} s here)")
+
     # -- phases 6, 8, 9: the v2, v4 and v3 main paths -----------------------
     # Every advice commit is watched: the spy keeps the device twins' planes
     # and the host advice columns by reference, and after the prove has
@@ -1076,7 +1173,8 @@ def main() -> int:
     v2_keys = ("total_s", "execute_s", "data_commit_s", "data_assemble_s", "data_upload_s",
                "data_stream_s", "data_levels_s", "advice_build_s", "advice_dev_s", "advice_commit_s",
                "advice_assemble_s", "advice_upload_s", "advice_stream_s", "advice_levels_s",
-               "zerochecks_s", "batch_eval_s", "open_s", "unified_s", "lasso_s", "witness_dev_s",
+               "zerochecks_s", "dag_build_s", "zerocheck_host_s", "batch_eval_s", "open_s", "unified_s",
+               "lasso_s", "witness_dev_s",
                "forest_s", "evals_s", "opens_s", "commitments_s")
     launches_at_2_20 = {}
     for phase, version, names in ((6, 2, ("v2-nop-2^16", "v2-fibonacci-10000", "v2-nop-2^20")),
@@ -1098,7 +1196,8 @@ def main() -> int:
             log(f"phase {phase} {name}: steps {t['num_steps']}, {len(data)} B, sha256 {sha(data)[:16]} == pinned, Accept, "
                 f"commit paths {t['data_commit_path']}/{t['advice_commit_path']}, launches {counts}, "
                 f"DATA commit (total_rows, n, n_e) {t['data_commit_shape']}, ADVICE {t['advice_commit_shape']}")
-            log(f"phase {phase} {name} device rounds: zerochecks_s={t['zerochecks_s']} lasso_s={t['lasso_s']} "
+            log(f"phase {phase} {name} device rounds: zerochecks_s={t['zerochecks_s']} "
+                f"dag_build_s={t['dag_build_s']} zerocheck_host_s={t['zerocheck_host_s']} lasso_s={t['lasso_s']} "
                 f"total_s={t['total_s']} advice_dev_s={t['advice_dev_s']} advice_upload_s={t['advice_upload_s']} "
                 + " ".join(f"{k}={v}" for k, v in device_work.items())
                 + f" planes == host advice columns (held after the prove) peak_device_memory_B={peak}")
@@ -1112,7 +1211,8 @@ def main() -> int:
     t0 = time.perf_counter()
     results.update(zerocheck_kernel_phase(v2_zerochecks, dev, max_sm_mhz, chain_instr / (babybear.CHAIN + 1), 3))
     del v2_zerochecks
-    log(f"phase 9b: Z1 and Z2 == their plain versions at {len(results['z1'])} and {len(results['z2'])} shapes "
+    log(f"phase 9b: Z1 and Z2 == their plain versions at {len(results['z1'])} and {len(results['z2'])} shapes, "
+        f"and Z1 on each of the {len(results['z1_programs'])} distinct programs of the v2 2^20 prove "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 7: ligero_commit_device against ligero_commit ---------------
@@ -1389,22 +1489,29 @@ def main() -> int:
     # The zerocheck kernels replace XLA-fused jit, not a Pallas kernel: their
     # "replaces" names the JAX functions.  Launches from the v2 2^20 prove
     # (the main path), v3 and v4 at 2^20 and v2 at 2^16 beside them.
-    for key, counter, name, replaces in (
-            ("z1", "round_sums", "dag_round_sums (Z1)",
+    shape_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    for key, counter, name, source, replaces in (
+            ("z1", "round_sums", "dag_round_sums (Z1, generated for each DAG program)",
+             "zigz_tpu_torch/csrc/dag_round.cuh",
              "zigz_tpu/ops/symtrace.py:260 compile_device + zigz_tpu/ops/zerocheck_dev_ext.py:113 _round_sums"),
-            ("z2", "fold_planes", "ext_fold (Z2)",
+            ("z2", "fold_planes", "ext_fold (Z2)", "zigz_tpu_torch/csrc/zerocheck_kernels.cu",
              "zigz_tpu/ops/ext4_dev.py:132 ext_fold_dev, :144 ext_fold_base_dev "
              "(zigz_tpu/ops/zerocheck_dev_ext.py:252,278)")):
         first, *rest = results[key]
-        kernels_line["kernels"].append(
-            {"name": name, "route": "cuda", "source": "zigz_tpu_torch/csrc/zerocheck_kernels.cu",
-             "replaces": replaces, "tpu_kernel": None, "launches": v2_counts[counter],
-             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                      "shape")},
-             "launches_v3": launches_at_2_20[3][counter], "launches_v4": launches_at_2_20[4][counter],
-             "launches_v2_2_16": launches_at_2_16[counter],
-             "other_shapes": [{k: e[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
-                              for e in rest]})
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "tpu_kernel": None, "launches": v2_counts[counter],
+                 **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "shape")},
+                 "launches_v3": launches_at_2_20[3][counter], "launches_v4": launches_at_2_20[4][counter],
+                 "launches_v2_2_16": launches_at_2_16[counter],
+                 "other_shapes": [{k: e[k] for k in shape_keys} for e in rest]}
+        if key == "z1":
+            entry.update(generator="zigz_tpu_torch/ops/dag_codegen.py",
+                         generated="build/zigz_tpu_torch/dag/<hash>.cu", build=first["build"],
+                         other_shapes=[{**{k: e[k] for k in shape_keys}, "build": e["build"]} for e in rest],
+                         every_program_of_v2_2_20=[{**{k: e[k] for k in shape_keys}, "build": e["build"]}
+                                                   for e in results["z1_programs"]])
+        kernels_line["kernels"].append(entry)
     log(json.dumps({"torch_ops": torch_ops}))
     log(json.dumps(kernels_line))
     log(info["nvidia_smi"])

@@ -9,9 +9,10 @@ twice: once untraced (the warm-up, whose phase timings are printed), once
 under ``torch.profiler`` (``zigz_tpu_torch.utils.profiling.device_trace``,
 which leaves the Chrome trace in ``DIR/trace.json``).  Prints the card's nvidia-smi name and power
 limit, both runs' phase timings, the traced run's wall time, the sum of the
-kernels' device time, the idle share (1 - device time / wall), the device
-time by kernel name, the count of device zerochecks with the DAG sweep's
-launches, and peak device memory.  The profiler slows the host down, so
+kernels' device time, the idle share (1 - device time / wall), Z1's device
+time and launches (every generated program's kernel), the device time by
+kernel name, the count of device zerochecks with the DAG sweep's launches,
+and peak device memory.  The profiler slows the host down, so
 the idle share of the traced run is an upper bound for an untraced one.
 It imports no JAX and nothing of the JAX package.
 """
@@ -47,7 +48,8 @@ def main() -> int:
 
     print(card_info()["nvidia_smi"], flush=True)
     program = bytes([0x13, 0x00, 0x00, 0x00]) * (1 << args.log2_steps)
-    keys = ("total_s", "zerochecks_s", "advice_build_s", "lasso_s", "data_commit_s", "advice_commit_s",
+    keys = ("total_s", "zerochecks_s", "dag_build_s", "zerocheck_host_s", "advice_build_s", "lasso_s",
+            "data_commit_s", "advice_commit_s",
             "batch_eval_s", "open_s", "unified_s", "execute_s", "commitments_s")
 
     def prove():
@@ -86,6 +88,8 @@ def main() -> int:
         print("torch.profiler recorded no device time", file=sys.stderr)
         return 1
     print(f"traced wall_s={wall} device_busy_s={busy_s} idle_share={1 - busy_s / wall}", flush=True)
+    z1 = [r for r in rows if "zigz_dag_round_sums_kernel" in r[2]]  # every generated program's kernel
+    print(f"z1_device_ms={sum(r[0] for r in z1) / 1e3} z1_launches={sum(r[1] for r in z1)}", flush=True)
     for device_us, count, key in sorted(rows, reverse=True)[: args.top]:
         print(f"  {device_us / 1e3:12.3f} ms  {count:9d} x  {key[:90]}", flush=True)
     return 0

@@ -261,9 +261,11 @@ def test_ext_zerocheck_of_a_real_v2_combiner_on_the_card_matches_native(cuda):
 
 @pytest.mark.parametrize("width", [2, 64, 1 << 12])
 def test_zerocheck_kernels_match_their_plain_versions(cuda, width):
-    """Z1 (round sums of the core argument's DAGs, both layouts) and Z2
-    (the fold from each layout) on card tensors == their plain versions on
-    the same tensors; each wrapper call is one launch."""
+    """Z1 (round sums of the core argument's DAGs, both layouts, each
+    through the kernel generated for its program) and Z2 (the fold from
+    each layout) on card tensors == their plain versions on the same
+    tensors; each wrapper call is one launch, and the prover started both
+    programs' builds when it was constructed."""
     from zigz_tpu_torch.constraints import v2
     from zigz_tpu_torch.constraints.core_arg import CORE_COLUMNS, V2_G_COLUMNS
     from zigz_tpu_torch.ops import dag_dev
@@ -286,6 +288,7 @@ def test_zerocheck_kernels_match_their_plain_versions(cuda, width):
         before = dag_dev.LAUNCHES["round_sums"]
         got = dag_dev.round_sums(program, consts, planes, v2.V2_DEGREE)
         assert dag_dev.LAUNCHES["round_sums"] == before + 1
+        assert program.kernel is zc.programs[lift].kernel and program.kernel.path.is_file()
         assert torch.equal(got, dag_dev.plain_round_sums(program, consts, planes, v2.V2_DEGREE).cpu())
         groups = zerocheck_dev_ext.fold_groups(B, 0)[lift]
         r4 = [int(x) for x in rng.integers(0, P, size=4)]

@@ -6,9 +6,11 @@ reference interpreter against ``compile_dag`` and zigz_tpu's
 against zigz_tpu's ``ext_fold_dev`` / ``ext_fold_base_dev``.
 
 The kernels themselves run only on a card (tests/test_torch_cuda.py,
-chip_smoke.py phase 9b).  Here every wrapper takes its plain version, and
-the reference interpreter runs the kernel's steps in numpy: Montgomery u32
-slots, u64 products, the column at each point formed where it is read.
+chip_smoke.py phase 9b); Z1's generated body is held on the host in
+tests/test_torch_dag_codegen.py.  Here every wrapper takes its plain
+version, and the reference interpreter runs the kernel's steps in numpy:
+Montgomery u32 values, u64 products, the column at each point formed where
+it is read.
 
 Inputs are made with numpy from fixed seeds; values are exact field
 elements, compared whole (tolerance zero).  zigz_tpu's ``compile_device``
@@ -23,7 +25,7 @@ import torch
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
-from torch_dag_programs import P, check_program, jax_lanes, prove_dags, random_planes
+from torch_dag_programs import P, check_program, jax_lanes, prove_dags, random_dags, random_planes
 from zigz_tpu.ops import ext4_dev as ref_ext4_dev
 from zigz_tpu.ops import zerocheck_dev_ext as ref_zerocheck_dev_ext
 from zigz_tpu.ops.babybear import np_from_mont, np_to_mont
@@ -58,7 +60,7 @@ def test_every_zerocheck_of_a_prove_gives_two_dags(dags):
 def test_program_of_every_dag_matches_compile_dag(dags, version):
     """Every DAG of the prove: the encoded program, run step for step as the
     kernel runs it, equals compile_dag's torch ops lane by lane at t = 0 and
-    the plain round sums at every point; and its slots fit the kernel."""
+    the plain round sums at every point; and the generator takes it."""
     rng = np.random.default_rng(version)
     seen = set()
     for label, nodes, outs, row_of, degree, n_consts in dags[version]:
@@ -105,43 +107,7 @@ def test_round_sums_match_zigz_tpu_round_sums(dags):
     np.testing.assert_array_equal(got.numpy().astype(np.uint64), want)
 
 
-def test_every_real_dag_fits_the_kernel(dags):
-    """The kernel's slots live in shared memory: every DAG of the proves
-    leaves room for at least 32 threads a block (the largest, 340 slots,
-    runs 160)."""
-    widest = 0
-    for version, found in dags.items():
-        for _label, nodes, outs, row_of, _degree, n_consts in found:
-            program = symtrace.compile_device(nodes, outs, row_of)
-            threads = dag_dev.block_threads(program, len(program.constants([0] * n_consts).table))
-            assert threads >= 32 and threads % 32 == 0
-            widest = max(widest, program.n_slots)
-    assert 300 < widest < 400
-
-
 # -- random DAGs ---------------------------------------------------------------
-
-_C = symtrace._COL, symtrace._CONST, symtrace._ZERO, symtrace._ADD, symtrace._SUB, symtrace._MUL
-
-
-@st.composite
-def random_dags(draw):
-    """(nodes, outs, n_cols, n_consts): columns, constants and the zero,
-    then up to 40 ring ops on earlier nodes (constant-only ones among
-    them), and one to four outputs of any kind."""
-    col, const, zero, add, sub, mul = _C
-    n_cols = draw(st.integers(1, 4))
-    n_consts = draw(st.integers(0, 4))
-    nodes = [(col, f"c{i}", None) for i in range(n_cols)]
-    nodes += [(const, k, None) for k in range(n_consts)] + [(zero, None, None)]
-    for _ in range(draw(st.integers(0, 40))):
-        op = draw(st.sampled_from((add, sub, mul)))
-        a = draw(st.integers(0, len(nodes) - 1))
-        b = draw(st.integers(0, len(nodes) - 1))
-        nodes.append((op, a, b))
-    outs = tuple(draw(st.lists(st.integers(0, len(nodes) - 1), min_size=1, max_size=4)))
-    return nodes, outs, n_cols, n_consts
-
 
 @settings(max_examples=12, deadline=None, suppress_health_check=[HealthCheck.too_slow])
 @given(dag=random_dags(), seed=st.integers(0, 2**32 - 1), degree=st.integers(1, 5))
@@ -218,14 +184,6 @@ def test_round_sums_checks_its_inputs():
     before = dict(dag_dev.LAUNCHES)
     assert dag_dev.round_sums(program, consts, planes, 2).tolist() == [[0], [0]]
     assert dag_dev.LAUNCHES == before  # the plain version launches nothing
-
-
-def test_block_threads_raises_past_shared_memory():
-    program, consts = _tiny_program()
-    assert dag_dev.block_threads(program, 1) == dag_dev.MAX_THREADS
-    program.n_slots = 1800
-    with pytest.raises(ValueError, match="shared memory"):
-        dag_dev.block_threads(program, 1)
 
 
 # -- Z2: the fold of a whole plane stack -------------------------------------------

@@ -1,7 +1,7 @@
 """The zerocheck DAGs of a v3 prove (Poseidon2 commitments) through the
 round-sum kernel's program on the CPU, as tests/test_torch_dag_kernels.py
 holds v2's and v4's: the encoded program's reference interpreter against
-``compile_dag`` at every point, the kernel's slot limit, and zigz_tpu's
+``compile_dag`` at every point, the generator's limits, and zigz_tpu's
 ``compile_device`` (op by op) on the DAGs of 300 to 750 nodes, which the
 other file leaves out.  A file of its own because the v3 prove's Poseidon2
 commits take most of its time on the CPU.  Tolerance zero."""

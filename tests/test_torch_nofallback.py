@@ -7,6 +7,9 @@
 * The Ligero entry points and the zerocheck kernels' wrappers
   (``dag_dev.round_sums``, ``ext4_dev.fold_planes``) on a CUDA tensor
   build the kernels or raise; they never hash, sum or fold on the host.
+  Z1's generated kernel raises as the fixed kernels do: nvcc missing, nvcc
+  failing (its stderr in the error, again at every wait), a library that
+  does not load.
 * The zerocheck and Lasso dispatch with a device never goes back to the
   host provers: an absent CUDA device raises, a combiner outside the traced
   algebra raises ``TraceError``, and there is no width gate.
@@ -126,7 +129,7 @@ def test_build_hashes_the_sources():
     units, headers = _build._sources()
     assert [p.name for p in units] == ["field_kernels.cu", "ligero_kernels.cu", "sha3_kernels.cu",
                                        "zerocheck_kernels.cu"]
-    assert [p.name for p in headers] == ["babybear.cuh", "keccak.cuh"]
+    assert [p.name for p in headers] == ["babybear.cuh", "dag_round.cuh", "keccak.cuh"]
     path = _build._library_path(units, headers)
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
@@ -173,6 +176,66 @@ def test_zerocheck_kernel_wrappers_on_cuda_build_the_kernels_or_raise(entry, fre
         else:
             ext4_dev.fold_planes(planes, [1, 2, 3, 4], ext4_dev.FoldGroups([(1, 0, 1, 2, 3)]))
     assert (dict(dag_dev.LAUNCHES), dict(ext4_dev.LAUNCHES)) == before
+
+
+def _tiny_program():
+    from zigz_tpu_torch.ops.symtrace import compile_device, trace_combiner
+
+    trace = trace_combiner(lambda c, a, p: (c["x"] * a[0]) % p, ["x"], [3], 2013265921)
+    program = compile_device(trace.nodes, [trace.out], {"x": 0})
+    return program, program.constants(trace.consts)
+
+
+@pytest.fixture
+def fresh_generated(monkeypatch, tmp_path):
+    """No generated build in this process, an empty build directory, and
+    the fixed kernels taken as built."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_GENERATED", {})
+    monkeypatch.setattr(_build, "load", lambda: None)
+    return tmp_path
+
+
+def test_round_sums_raises_where_the_generated_kernel_has_no_nvcc(fresh_generated, monkeypatch):
+    """Past the fixed kernels, round_sums on a CUDA tensor builds the
+    program's generated kernel or raises; it never runs the plain version
+    there, and counts no launch."""
+    from zigz_tpu_torch.ops import dag_dev
+
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    program, consts = _tiny_program()
+    planes = torch.zeros((1, 8), dtype=torch.int64).as_subclass(_OnCuda)
+    before = dict(dag_dev.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        dag_dev.round_sums(program, consts, planes, 2)
+    assert dag_dev.LAUNCHES == before and program.kernel is None
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        dag_dev.prepare(program)
+
+
+def test_a_failing_generated_build_raises_at_every_wait(fresh_generated, monkeypatch):
+    from zigz_tpu_torch.ops import dag_dev
+
+    nvcc = _fake_nvcc(fresh_generated, 'echo "dag_round.cuh(1): error: no such thing" >&2\nexit 2\n')
+    monkeypatch.setattr(_build, "find_nvcc", lambda: nvcc)
+    program, consts = _tiny_program()
+    build = dag_dev.prepare(program)  # started, not waited for
+    planes = torch.zeros((1, 8), dtype=torch.int64).as_subclass(_OnCuda)
+    before = dict(dag_dev.LAUNCHES)
+    for _ in range(2):
+        with pytest.raises(_build.KernelBuildError, match="no such thing"):
+            dag_dev.round_sums(program, consts, planes, 2)
+    assert dag_dev.LAUNCHES == before and build.done() and not build.path.exists()
+
+
+def test_a_generated_library_that_does_not_load_raises(fresh_generated, monkeypatch):
+    from zigz_tpu_torch.ops import dag_dev
+
+    nvcc = _fake_nvcc(fresh_generated, 'while [ "$1" != "-o" ]; do shift; done\necho garbage > "$2"\nexit 0\n')
+    monkeypatch.setattr(_build, "find_nvcc", lambda: nvcc)
+    program, consts = _tiny_program()
+    with pytest.raises(_build.KernelBuildError, match="could not load"):
+        dag_dev.prepare(program).wait()
 
 
 def test_ligero_commits_on_cuda_raise_without_a_card(no_cuda):

@@ -145,8 +145,11 @@ def test_device_dev_columns_resident(monkeypatch):
     zerocheck_dev_ext.reset_counters()
     got = _device(cols, host_tail=8, dev_columns=refs)
     assert zerocheck_dev_ext.COLUMNS == {"resident": 2, "uploaded": 1}
-    # sweep_launches counts the kernels Z1 and Z2; on the CPU their plain versions run
-    assert zerocheck_dev_ext.DEVICE_PROVES == {"count": 1, "sweep_launches": 0}
+    # sweep_launches counts the kernels Z1 and Z2; on the CPU their plain versions run, and
+    # nothing waits on nvcc; the host's tracing and lowering take some time
+    counters = dict(zerocheck_dev_ext.DEVICE_PROVES)
+    host_s = counters.pop("zerocheck_host_s")
+    assert counters == {"count": 1, "sweep_launches": 0, "dag_build_s": 0.0} and host_s > 0
     _assert_equal(*_reference("host", cols, monkeypatch), *got)
 
 

@@ -8,18 +8,30 @@ the objects into one shared library with a plain C interface, under
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the library.
 
+Generated units (Z1, one per DAG program: ops/dag_codegen.py) are built
+beside it: :func:`start_generated` writes the source to
+``build/zigz_tpu_torch/dag/<hash>.cu`` and starts ``nvcc`` on it without
+waiting, into a library of its own, ``<hash>.so``, with ``<hash>.log`` (the
+ptxas report) beside it; :meth:`GeneratedBuild.wait` finishes the build and
+loads the library.  ``<hash>`` covers the source, the headers of ``csrc/``
+and the flags, so a later process reuses the library, and equal programs
+share one.
+
 Every failure raises :class:`KernelBuildError` (nvcc missing, a compile error
-with nvcc's stderr, a library that does not load) or
+with nvcc's stderr, a timeout, a library that does not load) or
 :class:`KernelLaunchError` (a launcher that returned a CUDA error).  Nothing
 returns ``None`` and nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
+import re
 import shutil
+import signal
 import subprocess
 import threading
 import time
@@ -30,14 +42,19 @@ __all__ = [
     "KernelBuildError",
     "KernelLaunchError",
     "Kernels",
+    "GeneratedBuild",
     "find_nvcc",
     "load",
     "launch",
+    "check",
+    "start_generated",
+    "ptxas_report",
 ]
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "zigz_tpu_torch"
+GENERATED_SUBDIR = "dag"  # generated units, under BUILD_DIR
 # The toolkit's default install prefix, tried after CUDA_HOME and PATH.
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
@@ -57,11 +74,11 @@ _SYMBOLS = {
     "zigz_sha3_columns": ([_PTR, _PTR, _I64, _I64, _PTR], _INT),
     "zigz_sha3_absorb": ([_PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _PTR], _INT),
     "zigz_field_mul_chain": ([_PTR, _PTR, _I64, _PTR, _PTR], _INT),
-    "zigz_dag_round_sums": ([_PTR, _I64, _PTR, _INT, _PTR, _INT, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR],
-                            _INT),
     "zigz_ext_fold": ([_PTR, _I64, _PTR, _INT, _PTR, _PTR, _PTR], _INT),
     "zigz_cuda_error_string": ([_INT], ctypes.c_char_p),
 }
+# The launcher of every generated unit (csrc/dag_round.cuh).
+_GENERATED_SYMBOLS = {"zigz_dag_round_sums": ([_PTR, _I64, _INT, _INT, _PTR, _INT, _PTR, _PTR], _INT)}
 
 
 class KernelBuildError(RuntimeError):
@@ -111,9 +128,19 @@ def _library_path(units, headers) -> Path:
     return BUILD_DIR / f"libzigz_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _kill(proc) -> None:
+    """Kill nvcc and the compilers it started (its own process group)."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    proc.communicate()
+
+
 def _run_nvcc(procs) -> str:
-    """Wait for every (cmd, Popen) in ``procs``; raise on the first failure.
-    Returns their output, in order."""
+    """Wait for every (cmd, Popen) in ``procs``, NVCC_TIMEOUT_S at most;
+    raise on the first failure.  Returns their output, in order."""
     log = []
     failed = None
     deadline = time.monotonic() + NVCC_TIMEOUT_S
@@ -122,8 +149,7 @@ def _run_nvcc(procs) -> str:
             out, err = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
             for _, other in procs:
-                other.kill()
-                other.communicate()
+                _kill(other)
             raise KernelBuildError(f"nvcc timed out after {NVCC_TIMEOUT_S} s: {' '.join(cmd)}") from None
         log.append(err + out)
         if proc.returncode != 0 and failed is None:
@@ -135,7 +161,8 @@ def _run_nvcc(procs) -> str:
 
 def _start(cmd):
     try:
-        return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                     start_new_session=True)
     except OSError as exc:
         raise KernelBuildError(f"could not run nvcc ({cmd[0]}): {exc}") from exc
 
@@ -154,9 +181,7 @@ def _compile(nvcc: str, units, out: Path) -> tuple:
         log += _run_nvcc([_start([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)])])
     except KernelBuildError:
         for _, proc in procs:  # a unit that could not start leaves the others running
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+            _kill(proc)
         tmp.unlink(missing_ok=True)
         raise
     finally:
@@ -207,10 +232,161 @@ def load() -> Kernels:
         return _LOADED
 
 
+def check(status: int, name: str) -> None:
+    """Raise if launcher ``name`` returned a CUDA error."""
+    if status != 0:
+        msg = load().lib.zigz_cuda_error_string(status).decode(errors="replace")
+        raise KernelLaunchError(f"{name} failed: CUDA error {status} ({msg})")
+
+
 def launch(name: str, *args) -> None:
     """Call launcher ``name``; raise if it reports a CUDA error."""
-    lib = load().lib
-    status = getattr(lib, name)(*args)
-    if status != 0:
-        msg = lib.zigz_cuda_error_string(status).decode(errors="replace")
-        raise KernelLaunchError(f"{name} failed: CUDA error {status} ({msg})")
+    check(getattr(load().lib, name)(*args), name)
+
+
+# -- generated units -----------------------------------------------------------
+
+
+def _generated_hash(source: str, extra_flags=()) -> str:
+    h = hashlib.sha256(source.encode())
+    for path in sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS + tuple(extra_flags)).encode())
+    return h.hexdigest()[:20]
+
+
+def _publish(path: Path, data: str) -> None:
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.write_text(data)
+    os.replace(tmp, path)
+
+
+class GeneratedBuild:
+    """The build of one generated unit: started on construction (nvcc runs
+    in the background, a thread collecting its output, unless the library
+    is already built), finished by :meth:`wait`, which loads the library
+    once and returns it.  ``build_s`` is nvcc's wall time in this process
+    (0.0 when the library was reused), ``waited_s`` the time callers spent
+    blocked in :meth:`wait`, ``log`` nvcc's output (the ptxas report), kept
+    beside the library."""
+
+    def __init__(self, source: str, extra_flags=()):
+        self.key = _generated_hash(source, extra_flags)
+        self.dir = BUILD_DIR / GENERATED_SUBDIR
+        self.path = self.dir / f"{self.key}.so"
+        self.build_s = 0.0
+        self.waited_s = 0.0
+        self.log = ""
+        self._lib = None
+        self._error = None
+        self._nvcc = None  # the thread that waits for nvcc
+        self._lock = threading.Lock()
+        if self.path.is_file():
+            return
+        nvcc = find_nvcc()
+        if nvcc is None:
+            raise KernelBuildError(
+                "nvcc not found (set CUDA_HOME or put nvcc on PATH); the generated round-sum "
+                "kernel cannot be built and the port has no fallback for CUDA tensors"
+            )
+        self.dir.mkdir(parents=True, exist_ok=True)
+        src = self.dir / f"{self.key}.cu"
+        _publish(src, source)
+        self._tmp = self.path.with_name(f"{self.path.name}.{os.getpid()}.{id(self)}.tmp")
+        started = _start([nvcc, *NVCC_FLAGS, *extra_flags, "-shared", "-I", str(CSRC), "-o", str(self._tmp),
+                          str(src)])
+        self._proc = started[1]
+        self._output = KernelBuildError(f"nvcc ended without a result: {' '.join(started[0])}")
+        self._nvcc = threading.Thread(target=self._collect, args=(started, time.perf_counter()), daemon=True)
+        self._nvcc.start()
+
+    def _collect(self, proc, t0: float) -> None:
+        try:
+            self._output = _run_nvcc([proc])
+        except KernelBuildError as exc:
+            self._output = exc
+        self.build_s = time.perf_counter() - t0
+
+    def done(self) -> bool:
+        """True once nvcc has exited (or was never needed)."""
+        return self._nvcc is None or not self._nvcc.is_alive()
+
+    def wait(self) -> ctypes.CDLL:
+        """The loaded library; raises KernelBuildError where nvcc failed,
+        timed out or the library does not load (and again on every call)."""
+        t0 = time.perf_counter()
+        with self._lock:
+            try:
+                if self._error is None and self._lib is None:
+                    self._finish()
+            finally:
+                self.waited_s += time.perf_counter() - t0
+            if self._error is not None:
+                raise self._error
+            return self._lib
+
+    def _finish(self) -> None:
+        try:
+            if self._nvcc is not None:
+                self._nvcc.join()
+                if isinstance(self._output, KernelBuildError):
+                    self._tmp.unlink(missing_ok=True)
+                    raise self._output
+                self.log = self._output
+                _publish(self.path.with_suffix(".log"), self.log)
+                os.replace(self._tmp, self.path)
+            elif self.path.with_suffix(".log").is_file():
+                self.log = self.path.with_suffix(".log").read_text()
+            try:
+                lib = ctypes.CDLL(str(self.path))
+            except OSError as exc:
+                raise KernelBuildError(f"could not load {self.path}: {exc}") from exc
+            for name, (argtypes, restype) in _GENERATED_SYMBOLS.items():
+                try:
+                    fn = getattr(lib, name)
+                except AttributeError as exc:
+                    raise KernelBuildError(f"{self.path} lacks symbol {name}") from exc
+                fn.argtypes = argtypes
+                fn.restype = restype
+            self._lib = lib
+        except KernelBuildError as exc:
+            self._error = exc
+
+
+_GENERATED = {}
+_GENERATED_LOCK = threading.Lock()
+
+
+def _stop_generated() -> None:
+    """At exit: kill the nvcc of every build still running in this process."""
+    for build in list(_GENERATED.values()):
+        if not build.done():
+            _kill(build._proc)
+
+
+def start_generated(source: str, extra_flags=()) -> GeneratedBuild:
+    """The build of ``source`` (with ``extra_flags`` after NVCC_FLAGS),
+    started now or found: one per hash and process, so equal programs share
+    one build and one library."""
+    key = _generated_hash(source, extra_flags)
+    with _GENERATED_LOCK:
+        build = _GENERATED.get(key)
+        if build is None:
+            if not _GENERATED:
+                atexit.register(_stop_generated)
+            build = _GENERATED[key] = GeneratedBuild(source, tuple(extra_flags))
+        return build
+
+
+def ptxas_report(log: str) -> dict:
+    """What ``-Xptxas -v`` says of one generated unit (``log``): the most
+    registers a function uses, the largest stack frame, and the spill bytes
+    of all its functions together (the kernel and, where the body is cut,
+    its segments), a thread."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    frames = [tuple(map(int, f)) for f in
+              re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    return {"registers": max(regs, default=None), "functions": len(regs),
+            "stack_frame_B": max((f[0] for f in frames), default=None),
+            "spill_stores_B": sum(f[1] for f in frames), "spill_loads_B": sum(f[2] for f in frames)}

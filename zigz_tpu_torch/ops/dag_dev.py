@@ -2,57 +2,50 @@
 
 Counterpart of the jitted round of zigz_tpu (ops/symtrace.py
 ``compile_device`` under ops/zerocheck_dev_ext.py ``_round_sums`` and
-ops/zerocheck_gen.py ``_round_fn``), which XLA fuses into a few kernels.
-Here a traced DAG is lowered once per prove to a program
-(ops/symtrace.py ``compile_device``) and one launch of
-``dag_round_sums_kernel`` (csrc/zerocheck_kernels.cu) gives a round's sums
-at every point over the whole width.
+ops/zerocheck_gen.py ``_round_fn``), which XLA compiles once per DAG
+signature.  Here a traced DAG is lowered to a program (ops/symtrace.py
+``compile_device``), ops/dag_codegen.py writes the program's own kernel,
+ops/_build.py compiles it with nvcc (``build/zigz_tpu_torch/dag/``), and
+one launch gives a round's sums at every point over the whole width.
 
-``round_sums`` launches Z1 for a CUDA tensor and runs the plain version,
-``plain_round_sums`` (``_round_sums_plain`` over ``compile_dag``'s torch
-ops), for a CPU tensor; it never falls back from one to the other.
-``LAUNCHES`` counts Z1's launches.
+``prepare`` starts the build of a program's kernel without waiting (the
+zerocheck provers call it when they are constructed); ``round_sums``
+waits for it, adding the wait to ``WAITED["build_s"]``, and launches it
+for a CUDA tensor, and runs the plain version, ``plain_round_sums``
+(``_round_sums_plain`` over ``compile_dag``'s torch ops), for a CPU
+tensor; it never falls back from one to the other.  ``LAUNCHES`` counts
+Z1's launches.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import _build
+from . import _build, dag_codegen
 from .babybear import P
 from .symtrace import R_MONT_INV, DagProgram, ProgramConstants
 
-__all__ = ["round_sums", "plain_round_sums", "block_threads", "SWEEP_CHUNK", "LAUNCHES"]
+__all__ = ["round_sums", "plain_round_sums", "prepare", "SWEEP_CHUNK", "LAUNCHES", "WAITED"]
 
-# Widest slice of the half-tables that one DAG pass evaluates (at all its
-# ``degree`` points at once); wider rounds run in chunks, so the sweep's
-# transient stays bounded.
+# Widest slice of the half-tables that one DAG pass of the plain version
+# evaluates (at all its ``degree`` points at once); wider rounds run in
+# chunks, so the sweep's transient stays bounded.
 SWEEP_CHUNK = 1 << 19
 
 # Kernel launches since the last reset; the plain version does not count.
 LAUNCHES = {"round_sums": 0}
-
-# The kernel's shared memory: a chunk of the program (csrc kChunk int4),
-# the constant table, then n_slots u32 slots for every thread of the block.
-SMEM_BYTES = 232448  # 227 KB, the most one block of an H100 may use
-CODE_CHUNK = 256
-MAX_THREADS = 256
+# Seconds spent waiting on nvcc for generated kernels, since the last reset.
+WAITED = {"build_s": 0.0}
 MAX_OUTPUTS = 4
 
 
-def block_threads(program: DagProgram, n_consts: int) -> int:
-    """Z1's block size for ``program``: the most threads, a multiple of 32
-    up to 256, whose slots fit in shared memory beside the staged program
-    and the constant table.  Raises where not even 32 threads fit."""
-    room = SMEM_BYTES - 16 * CODE_CHUNK - 4 * n_consts
-    per_thread = 4 * program.n_slots
-    threads = MAX_THREADS if per_thread == 0 else min(MAX_THREADS, room // per_thread // 32 * 32)
-    if threads < 32:
-        raise ValueError(f"the DAG program needs {program.n_slots} slots a thread (and {n_consts} constants): "
-                         f"32 threads of them do not fit in {SMEM_BYTES} B of shared memory")
-    return threads
+def prepare(program: DagProgram) -> _build.GeneratedBuild:
+    """Start the build of ``program``'s generated kernel, or find it (a
+    structurally equal program shares it); does not wait.  Raises
+    KernelBuildError where nvcc is missing."""
+    if program.kernel is None:
+        program.kernel = _build.start_generated(dag_codegen.generate(program))
+    return program.kernel
 
 
 def _round_sums_plain(dag, planes: torch.Tensor, degree: int):
@@ -102,8 +95,9 @@ def round_sums(program: DagProgram, consts: ProgramConstants, planes: torch.Tens
     read-back.  ``eq``: a plane row that multiplies the single output (the
     base-field zerocheck's eq table, which its DAG leaves out).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches
-    ``zigz_dag_round_sums`` or raises (KernelBuildError, KernelLaunchError)."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    program's generated kernel or raises (KernelBuildError,
+    KernelLaunchError)."""
     if consts.program is not program:
         raise ValueError("round_sums: the constants are bound to another program")
     if planes.dtype != torch.int64 or planes.dim() != 2 or not planes.is_contiguous():
@@ -124,17 +118,26 @@ def round_sums(program: DagProgram, consts: ProgramConstants, planes: torch.Tens
     if planes.device.type != "cuda":
         raise ValueError(f"round_sums: unsupported device {planes.device}")
     _build.load()  # build, or raise, before anything touches the card
+    return launch(prepare(program), consts, planes, degree, eq)
+
+
+def launch(build: _build.GeneratedBuild, consts: ProgramConstants, planes: torch.Tensor, degree: int,
+           eq: int = None) -> torch.Tensor:
+    """One launch of the generated kernel ``build`` (of ``consts.program``,
+    under any design of ops/dag_codegen.py) on checked CUDA ``planes``:
+    waits for the build, then the (degree, n_out) canonical sums on the
+    host."""
+    waited = build.waited_s
+    lib = build.wait()
+    WAITED["build_s"] += build.waited_s - waited
     dev = planes.device
-    n_consts = len(consts.table)
-    threads = block_threads(program, n_consts)
-    code, table = program.on(dev), consts.on(dev)
-    sums = torch.empty((degree, n_out), dtype=torch.int64, device=dev)
-    outs = (ctypes.c_int * n_out)(*program.outs.tolist())
+    sums = torch.empty((degree, len(consts.program.outs)), dtype=torch.int64, device=dev)
+    table = consts.montgomery  # host u32, copied into the launch's parameters
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.launch("zigz_dag_round_sums", planes.data_ptr(), width, code.data_ptr(), len(program.code),
-                      table.data_ptr(), n_consts, outs, n_out, -1 if eq is None else eq, program.n_slots, degree,
-                      threads, sums.data_ptr(), stream)
+        _build.check(lib.zigz_dag_round_sums(planes.data_ptr(), planes.shape[1], degree, -1 if eq is None else eq,
+                                             table.ctypes.data, len(table), sums.data_ptr(), stream),
+                     "zigz_dag_round_sums")
     LAUNCHES["round_sums"] += 1
-    raw = sums.cpu()  # Montgomery sums below 2^52
+    raw = sums.cpu()  # Montgomery sums below 2^63
     return raw % P * R_MONT_INV % P

@@ -385,18 +385,20 @@ def compile_dag(nodes, outs, row_of: Dict[str, int], consts):
 
 
 # ---------------------------------------------------------------------------
-# The encoded program of the round-sum kernel (csrc/zerocheck_kernels.cu)
+# The encoded program of the round-sum kernel Z1
 # ---------------------------------------------------------------------------
 #
 # Counterpart of zigz_tpu/ops/symtrace.py ``compile_device``, which jits the
-# DAG so that XLA fuses it into a few kernels.  Here the DAG becomes data: an
-# int32 instruction array that one hand-written kernel interprets, every
-# thread over its own slots.  An instruction is (op, dst slot, a, b); an
-# operand is ``index << 2 | kind``: a slot, a plane row (the column's value
-# at the thread's point, formed in the kernel) or an entry of the constant
-# table.  Slots hold Montgomery u32 values (x R mod p, R = 2^32) and every
-# op reduces, as the JAX package's uint32 lanes do; the round sums are
-# linear, so one conversion out of Montgomery form at the end is exact.
+# DAG so that XLA fuses it into a few kernels.  Here the DAG is lowered to
+# an int32 instruction array, from which ops/dag_codegen.py writes the
+# program's own kernel (csrc/dag_round.cuh), and which
+# ``_run_program_reference`` runs step for step in numpy.  An instruction is
+# (op, dst slot, a, b); an operand is ``index << 2 | kind``: a slot, a plane
+# row (the column's value at the thread's point, formed in the kernel) or an
+# entry of the constant table.  Values are Montgomery u32 (x R mod p,
+# R = 2^32) and every op reduces, as the JAX package's uint32 lanes do; the
+# round sums are linear, so one conversion out of Montgomery form at the end
+# is exact.
 
 OP_ADD, OP_SUB, OP_MUL = 0, 1, 2
 KIND_SLOT, KIND_ROW, KIND_CONST = 0, 1, 2
@@ -412,23 +414,16 @@ class DagProgram:
     """A traced DAG lowered for the round-sum kernel.
 
     ``code`` (n, 4) int32 rows (op, dst, a, b); ``outs`` (n_out,) int32
-    operands; ``n_slots`` the slots a thread needs (a slot is reused after
-    its value's last use); ``n_rows`` the plane rows the program reads.  The
-    program depends only on the DAG's structure and the row map; this
-    prove's constants enter through :meth:`constants`.  ``nodes``,
+    operands; ``n_slots`` the slots the reference needs (a slot is reused
+    after its value's last use); ``n_rows`` the plane rows the program
+    reads.  The program depends only on the DAG's structure and the row
+    map; this prove's constants enter through :meth:`constants`.  ``nodes``,
     ``out_nodes`` and ``row_of`` stay for the plain version
-    (:func:`compile_dag`)."""
+    (:func:`compile_dag`); ``kernel`` is the build of its generated kernel
+    once ops/dag_dev.py ``prepare`` has started it (None before)."""
 
     __slots__ = ("code", "outs", "n_slots", "n_rows", "nodes", "out_nodes", "row_of",
-                 "_const_nodes", "_table_nodes", "counts", "_on")
-
-    def on(self, device: torch.device) -> torch.Tensor:
-        """``code`` as an int32 tensor on ``device``, uploaded once."""
-        t = self._on.get(device)
-        if t is None:
-            t = torch.from_numpy(self.code).to(device)
-            self._on[device] = t
-        return t
+                 "_const_nodes", "_table_nodes", "counts", "kernel")
 
     def constants(self, consts) -> "ProgramConstants":
         """This prove's constants (the trace's canonical ints) bound to the
@@ -453,27 +448,18 @@ class DagProgram:
 
 class ProgramConstants:
     """A program's constant table for one prove: ``table`` canonical ints,
-    ``montgomery`` the kernel's representation, uploaded once per device
-    (:meth:`on`); :meth:`plain_run` is the plain version's lowering of the
-    same DAG with the same constants."""
+    ``montgomery`` the kernel's representation (a launch's parameters);
+    :meth:`plain_run` is the plain version's lowering of the same DAG with
+    the same constants."""
 
-    __slots__ = ("program", "consts", "table", "montgomery", "_on", "_run")
+    __slots__ = ("program", "consts", "table", "montgomery", "_run")
 
     def __init__(self, program: DagProgram, consts):
         self.program = program
         self.consts = [int(c) for c in consts]
         self.table = program._fold(self.consts)
         self.montgomery = np.array([v * R_MONT % P for v in self.table], dtype=np.uint32)
-        self._on: Dict[torch.device, torch.Tensor] = {}
         self._run = None
-
-    def on(self, device: torch.device) -> torch.Tensor:
-        """The Montgomery table as an int32 tensor on ``device``, uploaded once."""
-        t = self._on.get(device)
-        if t is None:
-            t = torch.from_numpy(self.montgomery.view(np.int32)).to(device)
-            self._on[device] = t
-        return t
 
     def plain_run(self):
         if self._run is None:
@@ -559,13 +545,13 @@ def compile_device(nodes, outs, row_of: Dict[str, int]) -> DagProgram:
     prog._const_nodes = const_nodes
     prog._table_nodes = sorted(table_at, key=table_at.get)
     prog.counts = counts
-    prog._on = {}
+    prog.kernel = None
     return prog
 
 
 def _redc_np(t: np.ndarray) -> np.ndarray:
     """Montgomery reduction t R^-1 mod p of uint64 t < p 2^32, as the
-    kernel's ``redc``."""
+    kernels' ``redc`` (csrc/babybear.cuh)."""
     m = ((t & np.uint64(0xFFFFFFFF)) * np.uint64(_NEG_P_INV)) & np.uint64(0xFFFFFFFF)
     u = (t + m * np.uint64(P)) >> np.uint64(32)
     return np.where(u >= P, u - np.uint64(P), u)

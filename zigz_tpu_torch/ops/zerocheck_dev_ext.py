@@ -7,10 +7,14 @@ once (ops/symtrace.py ``trace_combiner_ext``), the resulting base-op DAG is
 lowered to the round-sum kernel's program (``compile_device``), and each
 round on a card is two launches and one small read-back: Z1 gives the
 round's sums at every point over the whole width (ops/dag_dev.py
-``round_sums``), Z2 folds every table by the round's challenge into the
-next round's layout (ops/ext4_dev.py ``fold_planes``), both in
-csrc/zerocheck_kernels.cu.  All three provers emit byte-identical
-transcripts and proofs (tests/test_torch_zerocheck.py).
+``round_sums``, a kernel generated for the program by ops/dag_codegen.py),
+Z2 folds every table by the round's challenge into the next round's layout
+(ops/ext4_dev.py ``fold_planes``, csrc/zerocheck_kernels.cu).  The two
+programs of a zerocheck (round 0, later rounds) are lowered from the probe
+traces when the prover is constructed, and on a card their kernels' builds
+start there (``dag_dev.prepare``); the first round waits for them.  All
+three provers emit byte-identical transcripts and proofs
+(tests/test_torch_zerocheck.py).
 
 Every challenge of the v2 zerochecks is drawn from BabyBear^4, so the
 tables turn into 4-coordinate extension tables after the first fold.  The
@@ -26,8 +30,10 @@ through this class, and a ``TraceError`` or a failed launch raises.
 ``dev_columns`` names columns that already lie on the device as slices of
 a commitment's resident matrix (``DeviceColumnRef``), so only the columns
 that are in no commitment are uploaded.  ``DEVICE_PROVES`` counts the
-zerochecks proven here and the launches of Z1 and Z2 they made;
-``COLUMNS`` counts their base columns by origin.
+zerochecks proven here, the launches of Z1 and Z2 they made, the seconds
+they waited on nvcc for Z1's generated kernels (``dag_build_s``) and the
+seconds of their host tracing, lowering and generation
+(``zerocheck_host_s``); ``COLUMNS`` counts their base columns by origin.
 
 Plane layouts (rows of one (rows, width) int64 tensor), chosen so that
 every fold is a whole-stack operation with no transposes:
@@ -41,6 +47,7 @@ every fold is a whole-stack operation with no transposes:
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -62,14 +69,15 @@ __all__ = ["GenericDeviceZerocheckExt", "HOST_TAIL_EXT", "DEVICE_PROVES", "COLUM
 HOST_TAIL_EXT = 1
 
 # Zerochecks proven by this class since the last reset, the launches of Z1
-# and Z2 they made, and where their base columns came from: a commitment's
-# resident matrix, or an upload.
-DEVICE_PROVES = {"count": 0, "sweep_launches": 0}
+# and Z2 they made, their waits on nvcc and their host tracing, lowering and
+# generation (seconds), and where their base columns came from: a
+# commitment's resident matrix, or an upload.
+DEVICE_PROVES = {"count": 0, "sweep_launches": 0, "dag_build_s": 0.0, "zerocheck_host_s": 0.0}
 COLUMNS = {"resident": 0, "uploaded": 0}
 
 
 def reset_counters() -> None:
-    DEVICE_PROVES.update(count=0, sweep_launches=0)
+    DEVICE_PROVES.update(count=0, sweep_launches=0, dag_build_s=0.0, zerocheck_host_s=0.0)
     COLUMNS.update(resident=0, uploaded=0)
 
 
@@ -112,11 +120,20 @@ class GenericDeviceZerocheckExt:
         if n < 2 or n & (n - 1):
             raise ValueError(f"zerocheck tables must be a power of two >= 2 wide, got {n}")
         self.n = n
+        t0 = time.perf_counter()
         probe = [ext_from_ints([1, 0, 0, 0])] * self.num_alphas
         self._probe1 = trace_combiner_ext(combiner, self.base_names, self.ext_names, probe, P,
                                           lift_base=False)
         self._probe2 = trace_combiner_ext(combiner, self.base_names, self.ext_names, probe, P,
                                           lift_base=True)
+        # The programs depend on the DAGs' structure alone, which prove()
+        # holds equal to the probes'; on a card their kernels start building.
+        self.programs = tuple(compile_device(tr.nodes, tr.outs, row_of)
+                              for tr, row_of in zip((self._probe1, self._probe2), self._row_maps()))
+        if self.device.type == "cuda":
+            for program in self.programs:
+                dag_dev.prepare(program)
+        DEVICE_PROVES["zerocheck_host_s"] += time.perf_counter() - t0
 
     # ------------------------------------------------------------------
     def _row_maps(self):
@@ -177,6 +194,7 @@ class GenericDeviceZerocheckExt:
         taus = [challenge_ext(transcript) for _ in range(num_vars)]
         alphas = [challenge_ext(transcript) for _ in range(self.num_alphas)]
 
+        t0 = time.perf_counter()
         tr1 = trace_combiner_ext(self.combiner, self.base_names, self.ext_names, alphas, p,
                                  lift_base=False)
         tr2 = trace_combiner_ext(self.combiner, self.base_names, self.ext_names, alphas, p,
@@ -184,15 +202,15 @@ class GenericDeviceZerocheckExt:
         if tr1.signature != self._probe1.signature or tr2.signature != self._probe2.signature:
             raise TraceError("combiner structure depends on challenge values")
 
-        row_of1, row_of2 = self._row_maps()
-        program1 = compile_device(tr1.nodes, tr1.outs, row_of1)
-        program2 = compile_device(tr2.nodes, tr2.outs, row_of2)
+        program1, program2 = self.programs
         consts1, consts2 = program1.constants(tr1.consts), program2.constants(tr2.consts)
+        DEVICE_PROVES["zerocheck_host_s"] += time.perf_counter() - t0
 
         B, E = len(self.base_names), len(self.ext_names)
         G = B + E + 1
         first_groups, ext_groups = fold_groups(B, E)
         launches_before = dag_dev.LAUNCHES["round_sums"] + ext4_dev.LAUNCHES["fold_planes"]
+        waited_before = dag_dev.WAITED["build_s"]
         planes = self._assemble(taus)
 
         round_evals: List[List[Ext4]] = []
@@ -239,6 +257,7 @@ class GenericDeviceZerocheckExt:
         DEVICE_PROVES["count"] += 1
         DEVICE_PROVES["sweep_launches"] += (dag_dev.LAUNCHES["round_sums"] + ext4_dev.LAUNCHES["fold_planes"]
                                             - launches_before)
+        DEVICE_PROVES["dag_build_s"] += dag_dev.WAITED["build_s"] - waited_before
         return ZerocheckProof(
             num_vars=num_vars,
             degree=self.degree,

@@ -11,9 +11,11 @@ with one output instead of four), and the rounds run on the device:
 * eq(tau, .) built on the device from the tau challenges;
 * per round, g(0) and g(2..degree) of eq * C from one launch of kernel Z1
   (ops/dag_dev.py ``round_sums``, the eq row passed beside the DAG, which
-  leaves it out) - g(1) follows from the running claim as in the host
-  prover - and one ``fold_msb`` of the whole stack in torch ops (a few
-  launches a round; the extension prover's fold kernel Z2 is not used);
+  leaves it out; its kernel, generated for the program, starts building
+  when the prover is constructed) - g(1) follows from the running claim as
+  in the host prover - and one ``fold_msb`` of the whole stack in torch ops
+  (a few launches a round; the extension prover's fold kernel Z2 is not
+  used);
 * under a ``group`` (parallel/multihost.py ``TraceGroup``) the stack is cut
   cyclically over the ranks (parallel/dist.py) and each round's sums cross
   them in one all_reduce;
@@ -102,8 +104,16 @@ class GenericDeviceZerocheck:
         self.n = n
         self.columns = columns
         # Trace with placeholder alphas; prove() traces again with the real
-        # ones and holds the structure against this one.
+        # ones and holds the structure against this one.  The program
+        # depends on that structure alone; on a card its kernel starts
+        # building here.
         self._probe_trace = trace_combiner(combiner, self.names, [1] * self.num_alphas, P)
+        self.eq_row = len(self.names)
+        row_of = {name: i for i, name in enumerate(self.names)}
+        row_of["__eq__"] = self.eq_row
+        self.program = compile_device(self._probe_trace.nodes, [self._probe_trace.out], row_of)
+        if self.device.type == "cuda":
+            dag_dev.prepare(self.program)
 
     def prove(self, transcript: FiatShamirTranscript):
         from ..proofs.zerocheck import ZerocheckProof, ZerocheckProver, _fold_msb, _interp_eval
@@ -118,10 +128,7 @@ class GenericDeviceZerocheck:
         tr = trace_combiner(self.combiner, self.names, alphas, p)
         if tr.signature != self._probe_trace.signature:
             raise TraceError("combiner structure depends on challenge values")
-        eq_row = len(self.names)
-        row_of = {name: i for i, name in enumerate(self.names)}
-        row_of["__eq__"] = eq_row
-        program = compile_device(tr.nodes, [tr.out], row_of)
+        eq_row, program = self.eq_row, self.program
         consts = program.constants(tr.consts)
 
         # Under a group a table wider than the tail is cut cyclically over

@@ -51,7 +51,11 @@ evaluation run sharded over its ranks where their size predicates hold
 (``*_commit_sharded``, ``batch_eval_sharded``, ``open_sharded`` in
 ``timings`` say what ran); the device advice twins are then off, and the
 extension zerochecks run whole on every rank (``zerochecks_sharded`` is
-False), as in the JAX package.
+False), as in the JAX package.  Inside ``zerochecks_s``, ``dag_build_s`` is
+the time the zerochecks waited on nvcc for their generated round-sum
+kernels (0 once they are built) and ``zerocheck_host_s`` their host
+tracing, lowering and generation (ops/zerocheck_dev_ext.py
+``DEVICE_PROVES``).
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ from ..commitments.ligero import (
 )
 from ..core.ext4 import Ext4
 from ..device import resolve_device, synchronize
+from ..ops import zerocheck_dev_ext
 from ..proofs.batch_eval import (
     BatchClaim,
     BatchEvalProof,
@@ -194,6 +199,7 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
 
     sink = ClaimSink()
     t0 = time.perf_counter()
+    zc_before = dict(zerocheck_dev_ext.DEVICE_PROVES)
     states = {"data": data_state, "advice": advice_state}
     for a in args:
         a._unified_states = states
@@ -202,6 +208,8 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
         a.zerocheck_phase(transcript, sink)
     if timings is not None:
         timings["zerochecks_s"] = time.perf_counter() - t0
+        for key in ("dag_build_s", "zerocheck_host_s"):
+            timings[key] = zerocheck_dev_ext.DEVICE_PROVES[key] - zc_before[key]
         if group is not None:
             timings["zerochecks_sharded"] = False  # no group reaches the extension zerochecks
 
