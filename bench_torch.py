@@ -239,7 +239,7 @@ def bench_proves(dev, version: int, v: int, first: bool, pinned: dict) -> dict:
         counters = _counters(proof, version)
         if version >= 2:  # the wait on nvcc for Z1's generated kernels (the first pass of a process pays it)
             waits.append({key: prover.last_timings[key] for key in ("dag_build_s", "zerocheck_host_s",
-                                                                      "zerochecks_s")})
+                                                                      "zerocheck_start_s", "zerochecks_s")})
         data = ser.serialize(proof)  # outside the timed window
         digests.append((len(data), hashlib.sha256(data).hexdigest()))
         if proof.metadata.num_steps != num_steps:

@@ -92,7 +92,9 @@ the last line:
      proofs in the proof, and the Lasso device rounds must be > 0.  One
      line per case prints zerochecks_s, dag_build_s (its wait on nvcc for
      Z1's generated kernels, 0 once phase 1 built them), zerocheck_host_s
-     (its host tracing and lowering), lasso_s, total_s, those counts,
+     (its host tracing and constant folding), zerocheck_start_s (the
+     zerochecks made after each advice phase, where their builds start),
+     lasso_s, total_s, those counts,
      the columns read from the resident matrices against those uploaded,
      the DAG sweep's launches and peak device memory, the advice planes
      built on the device (148 at 2^20), the build time of each twin and
@@ -1173,7 +1175,7 @@ def main() -> int:
     v2_keys = ("total_s", "execute_s", "data_commit_s", "data_assemble_s", "data_upload_s",
                "data_stream_s", "data_levels_s", "advice_build_s", "advice_dev_s", "advice_commit_s",
                "advice_assemble_s", "advice_upload_s", "advice_stream_s", "advice_levels_s",
-               "zerochecks_s", "dag_build_s", "zerocheck_host_s", "batch_eval_s", "open_s", "unified_s",
+               "zerochecks_s", "dag_build_s", "zerocheck_host_s", "zerocheck_start_s", "batch_eval_s", "open_s", "unified_s",
                "lasso_s", "witness_dev_s",
                "forest_s", "evals_s", "opens_s", "commitments_s")
     launches_at_2_20 = {}
@@ -1197,7 +1199,8 @@ def main() -> int:
                 f"commit paths {t['data_commit_path']}/{t['advice_commit_path']}, launches {counts}, "
                 f"DATA commit (total_rows, n, n_e) {t['data_commit_shape']}, ADVICE {t['advice_commit_shape']}")
             log(f"phase {phase} {name} device rounds: zerochecks_s={t['zerochecks_s']} "
-                f"dag_build_s={t['dag_build_s']} zerocheck_host_s={t['zerocheck_host_s']} lasso_s={t['lasso_s']} "
+                f"dag_build_s={t['dag_build_s']} zerocheck_host_s={t['zerocheck_host_s']} "
+                f"zerocheck_start_s={t['zerocheck_start_s']} lasso_s={t['lasso_s']} "
                 f"total_s={t['total_s']} advice_dev_s={t['advice_dev_s']} advice_upload_s={t['advice_upload_s']} "
                 + " ".join(f"{k}={v}" for k, v in device_work.items())
                 + f" planes == host advice columns (held after the prove) peak_device_memory_B={peak}")

@@ -48,8 +48,8 @@ def main() -> int:
 
     print(card_info()["nvidia_smi"], flush=True)
     program = bytes([0x13, 0x00, 0x00, 0x00]) * (1 << args.log2_steps)
-    keys = ("total_s", "zerochecks_s", "dag_build_s", "zerocheck_host_s", "advice_build_s", "lasso_s",
-            "data_commit_s", "advice_commit_s",
+    keys = ("total_s", "zerochecks_s", "dag_build_s", "zerocheck_host_s", "zerocheck_start_s", "advice_build_s",
+            "lasso_s", "data_commit_s", "advice_commit_s",
             "batch_eval_s", "open_s", "unified_s", "execute_s", "commitments_s")
 
     def prove():

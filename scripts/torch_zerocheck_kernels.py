@@ -80,7 +80,8 @@ def main() -> int:
     want = sum(chip_smoke.card_zerocheck_launches(s["n"], s["host_tail"]) for s in specs)
     t = prover.last_timings
     chip_smoke.log(f"v2-nop-2^16 == pinned; zerochecks_s={t['zerochecks_s']} dag_build_s={t['dag_build_s']} "
-                   f"zerocheck_host_s={t['zerocheck_host_s']} {zerocheck_dev_ext.DEVICE_PROVES} "
+                   f"zerocheck_host_s={t['zerocheck_host_s']} zerocheck_start_s={t['zerocheck_start_s']} "
+                   f"{zerocheck_dev_ext.DEVICE_PROVES} "
                    f"(the kernels imply {want} launches)")
     if zerocheck_dev_ext.DEVICE_PROVES["sweep_launches"] != want:
         raise AssertionError("the sweep's launches are not those the kernels imply")

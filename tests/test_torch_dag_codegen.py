@@ -7,10 +7,12 @@ kernel's point formation and u64 sums.  Each generated body, built with
 ``g++ -O0``, is held to ``symtrace._run_program_reference`` (the numpy
 statement of the algorithm) lane by lane and sum by sum, with tolerance
 zero: every DAG of a v2 prove but the 11,738-instruction one (which the
-card runs, chip_smoke.py phase 9b), at their degrees 3, 4 and 6 and under
-every design of the generator; a base-field program with its eq row; random
+card runs, chip_smoke.py phase 9b), at their degrees 3, 4 and 6, as one
+body and cut into segments; a base-field program with its eq row; random
 DAGs; and against zigz_tpu's ``compile_device`` lanes on the DAGs of up to
-JAX_NODES nodes.  tests/test_torch_nofallback.py holds the wrapper's
+JAX_NODES nodes.  ops/dag_dev.py lowers a DAG once per signature, and a
+prove makes every zerocheck (so starts every build) before the first one
+proves.  tests/test_torch_nofallback.py holds the wrapper's
 build without nvcc, with a failing nvcc and with a library that does not
 load.
 
@@ -18,6 +20,7 @@ Inputs come from numpy with fixed seeds, with 0 and p - 1 among every
 row's lo and hi."""
 
 import ast
+import re
 
 import numpy as np
 import pytest
@@ -27,20 +30,14 @@ from hypothesis import strategies as st
 
 from torch_dag_programs import (P, check_generated, host_library, jax_lanes, prove_dags, random_dags, random_planes,
                                run_host)
-from zigz_tpu_torch.ops import _build, dag_codegen, symtrace
-from zigz_tpu_torch.ops.dag_codegen import Design
+import zigz_tpu_torch as zt
+from zigz_tpu_torch.ops import _build, dag_codegen, dag_dev, symtrace, zerocheck_dev_ext
+from zigz_tpu_torch.prover import unified
 
 JAX_NODES = 300  # the real DAGs zigz_tpu's compile_device is run on, by size
 HOST_LIMIT = 10_000  # instructions: the largest program is left to the card
-DESIGNS = {
-    "shipped": dag_codegen.DESIGN,
-    "whole": Design(),
-    "points": None,  # all of a lane's points in one thread, at the program's degree
-    "reload": Design(reload_after=8),
-    "segments": Design(segment=40, reload_after=30),
-    "cut_everywhere": Design(segment=1),
-    "bounds": Design(threads=256, min_blocks=2),
-}
+# Where the body is cut: one body, every instruction, every 40, as shipped.
+SEGMENTS = {"whole": None, "cut_everywhere": 1, "segments": 40, "shipped": dag_codegen.SEGMENT}
 
 
 @pytest.fixture(scope="module")
@@ -85,8 +82,8 @@ def _tiny(combiner, names, consts):
 
 
 def test_generation_is_deterministic_and_equal_programs_share_a_key():
-    """The source depends on the program's structure and the design only:
-    two traces with other constants give one source and one build key."""
+    """The source depends on the program's structure and its cut only: two
+    traces with other constants give one source and one build key."""
     def comb(c, a, p):
         return (c["x"] * a[0] + c["y"] * (c["x"] - a[1])) % p
 
@@ -95,7 +92,7 @@ def test_generation_is_deterministic_and_equal_programs_share_a_key():
     src = dag_codegen.generate(p1)
     assert src == dag_codegen.generate(p1) == dag_codegen.generate(p2)
     assert _build._generated_hash(src) == _build._generated_hash(dag_codegen.generate(p2))
-    other = dag_codegen.generate(p1, Design(threads=256))
+    other = dag_codegen.generate(p1, segment=1)
     assert other != src and _build._generated_hash(other) != _build._generated_hash(src)
     assert '#include "dag_round.cuh"' in src and "ZIGZ_DAG_N_CONSTS 2" in src
 
@@ -111,10 +108,8 @@ def test_the_build_key_covers_source_headers_and_flags(monkeypatch):
 
 def test_the_generator_refuses_what_the_kernel_cannot_take():
     _t, program = _tiny(lambda c, a, p: (c["x"] * a[0]) % p, ["x"], [3])
-    with pytest.raises(ValueError, match="design"):
-        dag_codegen.generate(program, Design(threads=100))
-    with pytest.raises(ValueError, match="design"):
-        dag_codegen.generate(program, Design(points=17))
+    with pytest.raises(ValueError, match="segment"):
+        dag_codegen.generate(program, segment=0)
     wide = symtrace.compile_device([(symtrace._COL, "x", None)], [0] * 5, {"x": 0})
     with pytest.raises(ValueError, match="outputs"):
         dag_codegen.generate(wide)
@@ -133,7 +128,7 @@ def test_the_generator_is_host_python():
     absolute |= {node.module.split(".")[0] for node in ast.walk(tree)
                  if isinstance(node, ast.ImportFrom) and node.level == 0}
     relative = {node.module for node in ast.walk(tree) if isinstance(node, ast.ImportFrom) and node.level == 1}
-    assert absolute <= {"__future__", "dataclasses", "typing"} and relative == {"symtrace"}
+    assert absolute <= {"__future__", "typing"} and relative == {"symtrace"}
 
 
 @pytest.mark.parametrize("version", [2, 4])
@@ -152,42 +147,60 @@ def test_every_dag_of_a_prove_reads_its_rows_and_writes_its_outputs(dags, versio
         assert src.count(" = mul(") == program.counts["mul"], label
 
 
+def test_a_row_is_formed_once_a_function(dags):
+    """A row value is formed where its function (the body, or a segment
+    of it) first reads it and reused after that: no function forms a row
+    twice, and a cut body forms each row in every segment that reads it."""
+    for label, nodes, outs, row_of, _degree, _n in dags[2][:8]:
+        program = symtrace.compile_device(nodes, outs, row_of)
+        n = len(program.code)
+        for cut in (None, 40):
+            seg = cut or n
+            src = dag_codegen.generate(program, cut)
+            functions = src.split("ZIGZ_DAG_SEGMENT")[1:] if n > seg else [src]
+            formed = [re.findall(r"const auto r(\d+) = row\(\1\);", f) for f in functions]
+            assert all(len(rows) == len(set(rows)) for rows in formed), (label, cut)
+            reads = [{int(opd) >> 2 for opd in program.code[i:i + seg, 2:].ravel() if int(opd) & 3 == symtrace.KIND_ROW}
+                     for i in range(0, n, seg)]
+            assert [set(map(int, rows)) for rows in formed] == reads, (label, cut)
+
+
 # -- the generated body against the reference ---------------------------------------
 
 
-@pytest.mark.parametrize("design", list(DESIGNS))
-def test_real_dags_equal_the_reference(dags, build_dir, design):
-    """The distinct programs of a v2 prove (95 to 4,629 instructions; the
-    shipped design takes all of them, the others the smallest five, the
-    smallest of each degree and the 2,297-instruction one), built for the
-    host, equal the reference at their own degree, width 8."""
+@pytest.mark.parametrize("cut", list(SEGMENTS))
+def test_real_dags_equal_the_reference(dags, build_dir, cut):
+    """The distinct programs of a v2 prove (95 to 4,629 instructions; cut
+    as shipped, all of them; otherwise the smallest five, the smallest of
+    each degree and the 2,297-instruction one; cut at every instruction,
+    the smallest of those), built for the host, equal the reference at
+    their own degree, width 8."""
     rng = np.random.default_rng(1)
     found = [d for d in _distinct(dags[2]) if len(d[1].code) < HOST_LIMIT]
-    if design != "shipped":
+    if cut != "shipped":
         first = {}
         for d in found:
             first.setdefault(d[2], d)
         found = [d for d in found if d in found[:5] or d in first.values() or len(d[1].code) == 2297]
-        if design == "cut_everywhere":  # a function a instruction: the smallest of them
+        if cut == "cut_everywhere":  # a function an instruction: the smallest of them
             found = found[:5] + [d for d in first.values() if d not in found[:5]]
     assert len(found) >= 6 and {d[2] for d in found} == {3, 4, 6}
     for label, program, degree, n_consts in found:
-        chosen = DESIGNS[design] or Design(points=degree)
         check_generated(program, _bound(program, n_consts, rng), random_planes(rng, program.n_rows, 8),
-                        degree, build_dir, chosen)
+                        degree, build_dir, SEGMENTS[cut])
 
 
 @pytest.mark.parametrize("degree", [1, 2, 3, 4, 5, 6])
 def test_a_real_dag_at_every_degree(dags, build_dir, degree):
     """The kernel takes the degree at launch: one program at degrees 1 to
-    6, width 32 (16 lanes), with all points in one thread beside it."""
+    6, width 32 (16 lanes), as one body and cut at every instruction."""
     rng = np.random.default_rng(degree)
     label, program, _degree, n_consts = _distinct(dags[2])[2]
     bound = _bound(program, n_consts, rng)
     planes = random_planes(rng, program.n_rows, 32)
-    base = check_generated(program, bound, planes, degree, build_dir)
-    one_thread = check_generated(program, bound, planes, degree, build_dir, Design(points=degree))
-    np.testing.assert_array_equal(base, one_thread)
+    whole = check_generated(program, bound, planes, degree, build_dir, None)
+    cut = check_generated(program, bound, planes, degree, build_dir, 1)
+    np.testing.assert_array_equal(whole, cut)
 
 
 def _grand_product(tau, gamma):
@@ -203,10 +216,10 @@ def _grand_product(tau, gamma):
     return combiner
 
 
-@pytest.mark.parametrize("design", ["shipped", "points", "segments"])
-def test_base_field_program_with_its_eq_row(build_dir, design):
+@pytest.mark.parametrize("cut", ["shipped", "segments", "cut_everywhere"])
+def test_base_field_program_with_its_eq_row(build_dir, cut):
     """The base-field zerocheck's one-output program, the eq row passed
-    beside it (ops/zerocheck_gen.py), at degree 4."""
+    beside it (ops/zerocheck_gen.py), at degree 4, as one body and cut."""
     rng = np.random.default_rng(12)
     names = ["__idx__", "__sel__", "a", "b", "g"]
     tr = symtrace.trace_combiner(_grand_product(*(int(x) for x in rng.integers(1, P, size=2))), names,
@@ -215,8 +228,8 @@ def test_base_field_program_with_its_eq_row(build_dir, design):
     row_of["__eq__"] = len(names)
     program = symtrace.compile_device(tr.nodes, [tr.out], row_of)
     planes = random_planes(rng, len(names) + 1, 64)
-    check_generated(program, program.constants(tr.consts), planes, 4, build_dir,
-                    DESIGNS[design] or Design(points=4), eq_row=len(names))
+    segment = {"shipped": dag_codegen.SEGMENT, "segments": 3, "cut_everywhere": 1}[cut]
+    check_generated(program, program.constants(tr.consts), planes, 4, build_dir, segment, eq_row=len(names))
 
 
 @settings(max_examples=12, deadline=None, suppress_health_check=[HealthCheck.too_slow,
@@ -224,16 +237,17 @@ def test_base_field_program_with_its_eq_row(build_dir, design):
 @given(dag=random_dags(), seed=st.integers(0, 2**32 - 1), degree=st.integers(1, 6))
 def test_random_dags_equal_the_reference(build_dir, dag, seed, degree):
     """Random DAGs (outputs that are rows or constants among them), with
-    an eq row where there is one output, under two designs."""
+    an eq row where there is one output, cut as shipped and every three
+    instructions."""
     nodes, outs, n_cols, n_consts = dag
     rng = np.random.default_rng(seed)
     program = symtrace.compile_device(nodes, outs, {f"c{i}": i for i in range(n_cols)})
     bound = program.constants([int(x) for x in rng.integers(0, P, size=n_consts)])
     planes = random_planes(rng, n_cols + 1, 8)
-    for design in (dag_codegen.DESIGN, Design(segment=3, reload_after=2)):
-        check_generated(program, bound, planes, degree, build_dir, design)
+    for cut in (dag_codegen.SEGMENT, 3):
+        check_generated(program, bound, planes, degree, build_dir, cut)
         if len(outs) == 1:
-            check_generated(program, bound, planes, degree, build_dir, design, eq_row=n_cols)
+            check_generated(program, bound, planes, degree, build_dir, cut, eq_row=n_cols)
 
 
 def test_small_real_dags_equal_zigz_tpu_compile_device(dags, build_dir):
@@ -273,6 +287,60 @@ def test_sums_are_exact_below_2_52_and_convert_once(build_dir):
     converted = sums % np.uint64(P) * np.uint64(symtrace.R_MONT_INV) % np.uint64(P)
     np.testing.assert_array_equal(converted, canon.sum(axis=-1, dtype=np.uint64) % np.uint64(P))
     np.testing.assert_array_equal(converted, want_sums)
+
+
+def test_a_dag_is_lowered_once_per_signature():
+    """ops/dag_dev.py ``program``: a trace with other constants finds the
+    program lowered first (no second compile_device, generation or hash);
+    another row map is another program; on the CPU no build starts."""
+    def comb(c, a, p):
+        return (c["x"] * a[0] + c["y"] * (c["x"] - a[1])) % p
+
+    cpu = torch.device("cpu")
+    t1, t2 = (symtrace.trace_combiner(comb, ["x", "y"], consts, P) for consts in ([3, 5], [7, 11]))
+    first = dag_dev.program(t1, [t1.out], {"x": 0, "y": 1}, cpu)
+    assert dag_dev.program(t2, [t2.out], {"y": 1, "x": 0}, cpu) is first and first.kernel is None
+    other = dag_dev.program(t1, [t1.out], {"x": 1, "y": 0}, cpu)
+    assert other is not first and other.code.tolist() != first.code.tolist()
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_a_prove_makes_every_zerocheck_before_the_first_one_proves(monkeypatch):
+    """prover/unified.py makes each argument's zerochecks right after its
+    advice phase, so on a card every program's build has started before
+    the first zerocheck waits for its own: a 16-step v2 prove on the CPU
+    has made all 12 of its device provers when the first one proves, and
+    proves with those same 12."""
+    cls = zerocheck_dev_ext.GenericDeviceZerocheckExt
+    made, at_first = [], []
+    init, prove = cls.__init__, cls.prove
+
+    def counted(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    def watched(self, transcript):
+        at_first.append(len(made))
+        return prove(self, transcript)
+
+    def stop(*_args, **_kwargs):
+        raise _Stop
+
+    monkeypatch.setattr(cls, "__init__", counted)
+    monkeypatch.setattr(cls, "prove", watched)
+    monkeypatch.setattr(unified, "prove_batch_eval", stop)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.raises(_Stop):
+            zt.Prover(zt.BabyBear, seed=0, device="cpu", protocol_version=2).prove(
+                bytes([0x13, 0, 0, 0]) * 16, 0x1000, None, 1 << 12, None, None)
+    finally:
+        torch.set_num_threads(threads)
+    assert len(made) == 12 and at_first == [12] * 12
 
 
 def test_the_ptxas_report_sums_spills_over_functions():

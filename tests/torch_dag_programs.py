@@ -167,12 +167,12 @@ def run_host(lib, bound, planes: np.ndarray, degree: int, eq_row=None):
     return lanes, sums
 
 
-def check_generated(program, bound, planes, degree, build_dir, design=dag_codegen.DESIGN, eq_row=None):
-    """The generated body of ``program`` under ``design``, built for the
-    host, equals ``_run_program_reference`` lane by lane and sum by sum
+def check_generated(program, bound, planes, degree, build_dir, segment=dag_codegen.SEGMENT, eq_row=None):
+    """The generated body of ``program``, cut every ``segment``
+    instructions (None: one body), built for the host, equals ``_run_program_reference`` lane by lane and sum by sum
     (tolerance zero); its lanes are canonical Montgomery values and its u64
     sums are the exact sums of its lanes.  Returns the canonical lanes."""
-    lib = host_library(dag_codegen.generate(program, design), build_dir)
+    lib = host_library(dag_codegen.generate(program, segment), build_dir)
     lanes, sums = run_host(lib, bound, planes, degree, eq_row)
     assert int(lanes.max(initial=0)) < P  # every value REDC-reduced to canonical
     np.testing.assert_array_equal(sums, lanes.astype(np.uint64).sum(axis=-1, dtype=np.uint64))

@@ -83,6 +83,7 @@ code would make honest proving fail, never unsound verification).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -109,7 +110,7 @@ from ..proofs.zerocheck import (
     ZerocheckExtVerifier,
     ZerocheckProof,
     absorb_ext,
-    unified_dev_columns,
+    prove_unified_zerocheck,
     unified_device,
 )
 from .regcheck import g_coord_names, g_eval_from_coords, pack_g_coords, sum_claim_values
@@ -953,6 +954,12 @@ class BytecodeArgument:
 
         return bytecode_advice_dev(data_state, self, self.num_vars)
 
+    @cached_property
+    def zerochecks(self) -> List[ZerocheckExtProver]:
+        """The argument's zerochecks in proving order, made once after the
+        advice phase (prover/unified.py starts them there)."""
+        return _bc_zerochecks(self)
+
     def zerocheck_phase(self, transcript, sink) -> None:
         _bc_zerocheck_phase(self, transcript, sink)
 
@@ -1400,16 +1407,17 @@ def _bc_advice_phase(self: BytecodeArgument, transcript) -> Dict[str, np.ndarray
     return out
 
 
-def _bc_zerocheck_phase(self: BytecodeArgument, transcript, sink) -> None:
-    F, trace = self.F, self.trace
+def _bc_zerochecks(self: BytecodeArgument) -> List[ZerocheckExtProver]:
+    """The argument's zerochecks in proving order: step, program and
+    RANGE16 domains, the query links (one a table), the memory link."""
+    F = self.F
     entry_pc, num_vars = self.entry_pc, self.num_vars
     padded = 1 << num_vars
     final_pc = self.final_pc
-    n, table, lk = self.n, self.table, self.lk
+    n, lk = self.n, self.lk
     m_col, m_r = self.m_col, self.m_r
     reg_cols = self.reg_arg.cols
     pcs_cols = self.core_arg.columns
-    validity_info = self.validity_info
     p = F.MODULUS
     P64 = np.uint64(p)
     (tau, gamma, tau_c, beta_c, tau_o, beta_o, tau_l, delta, tau_r,
@@ -1417,7 +1425,7 @@ def _bc_zerocheck_phase(self: BytecodeArgument, transcript, sink) -> None:
     ep, kap_t = self.ep, self.kap_t
     sel, sel1, sel2, idx = self.sel, self.sel1, self.sel2, self.idx
     g_cols_all, h_col, h_r = self.g_cols_all, self.h_col, self.h_r
-    s = self.sums
+    device = unified_device(self)
 
     # Step-domain zerocheck (extension challenges throughout).
     zc_cols = dict(lk)
@@ -1436,42 +1444,45 @@ def _bc_zerocheck_phase(self: BytecodeArgument, transcript, sink) -> None:
         tau, gamma, entry_pc % p, n, num_vars, p, tau_c, beta_c, tau_o, beta_o,
         tau_l, delta, tau_r, tau_w, eps, final_pc,
     )
-    zc = ZerocheckExtProver(
-        F, zc_cols, combiner, BYTECODE_DEGREE, num_alphas=NUM_BC_CONSTRAINTS,
-        device=unified_device(self),
-        dev_columns=unified_dev_columns(self, zc_cols),
-    ).prove(transcript)
+    zc = ZerocheckExtProver(F, zc_cols, combiner, BYTECODE_DEGREE, num_alphas=NUM_BC_CONSTRAINTS, device=device)
 
     # Program-domain zerocheck (public Ext4 key MLE).
     t_combiner, _ = _make_table_combiner(tau, kap_t, p)
     t_cols = {"m": m_col, "__key__": kap_t}
     t_cols.update(pack_g_coords({"h": h_col}))
-    zc_t = ZerocheckExtProver(
-        F, t_cols, t_combiner, BYTECODE_DEGREE, num_alphas=1,
-        device=unified_device(self),
-        dev_columns=unified_dev_columns(
-            self, t_cols,
-            rename=lambda n: ("m_prog" if n == "m"
-                              else n.replace("h", "h_prog", 1)
-                              if n.startswith("h#") else n),
-        ),
-    ).prove(transcript)
+    zc_t = ZerocheckExtProver(F, t_cols, t_combiner, BYTECODE_DEGREE, num_alphas=1, device=device)
 
     # RANGE16-domain zerocheck (public key = index).
     key16 = idx_table(16, p)
     r_combiner, _ = _make_table_combiner(tau_r, key16, p)
     r_cols = {"m": m_r, "__key__": key16}
     r_cols.update(pack_g_coords({"h": h_r}))
-    zc_r = ZerocheckExtProver(
-        F, r_cols, r_combiner, BYTECODE_DEGREE, num_alphas=1,
-        device=unified_device(self),
-        dev_columns=unified_dev_columns(
-            self, r_cols,
-            rename=lambda n: ("m_r16" if n == "m"
-                              else n.replace("h", "h_r16", 1)
-                              if n.startswith("h#") else n),
-        ),
-    ).prove(transcript)
+    zc_r = ZerocheckExtProver(F, r_cols, r_combiner, BYTECODE_DEGREE, num_alphas=1, device=device)
+
+    # Witness linkage, query side (constraints/linkage.py).
+    from .linkage import query_link_zerochecks
+
+    links = query_link_zerochecks(F, self.validity_info, tau_l, delta)
+
+    # Memory-side linkage zerocheck over the memcheck byte-row domain.
+    wl_combiner, _ = _make_memlink_combiner(tau_w, ep, self.A, self.mvv, p)
+    wl_cols = {"__sel__": self.sel_w, "__idx__": self.idx_A}
+    wl_cols.update(pack_g_coords({"g_lnk": self.g_lnk}))
+    for name in ("ba0", "ba1", "ba2", "ba3", "bk", "vw", "st"):
+        wl_cols[f"ref_{name}"] = self.mcc[name]
+    zc_mem = ZerocheckExtProver(F, wl_cols, wl_combiner, MEMLINK_DEGREE, num_alphas=1, device=device)
+    return [zc, zc_t, zc_r, *links, zc_mem]
+
+
+def _bc_zerocheck_phase(self: BytecodeArgument, transcript, sink) -> None:
+    num_vars, table, s = self.num_vars, self.table, self.sums
+    step, prog, range16, *links, mem = self.zerochecks
+
+    zc = prove_unified_zerocheck(self, step, transcript)
+    zc_t = prove_unified_zerocheck(self, prog, transcript,
+        rename=lambda n: ("m_prog" if n == "m" else n.replace("h", "h_prog", 1) if n.startswith("h#") else n))
+    zc_r = prove_unified_zerocheck(self, range16, transcript,
+        rename=lambda n: ("m_r16" if n == "m" else n.replace("h", "h_r16", 1) if n.startswith("h#") else n))
 
     # Claims at the step-zerocheck point: own lk/g columns via this
     # argument's locmap, ref_* columns via the regcheck / v2-core maps.
@@ -1487,20 +1498,10 @@ def _bc_zerocheck_phase(self: BytecodeArgument, transcript, sink) -> None:
     # argument's committed query representation.
     from .linkage import prove_query_links
 
-    links = prove_query_links(F, transcript, sink, validity_info,
-                              tau_l, delta, self.locmap)
+    links = prove_query_links(transcript, sink, self.validity_info, links, self.locmap)
 
     # Memory-side linkage zerocheck over the memcheck byte-row domain.
-    wl_combiner, _ = _make_memlink_combiner(tau_w, ep, self.A, self.mvv, p)
-    wl_cols = {"__sel__": self.sel_w, "__idx__": self.idx_A}
-    wl_cols.update(pack_g_coords({"g_lnk": self.g_lnk}))
-    for name in ("ba0", "ba1", "ba2", "ba3", "bk", "vw", "st"):
-        wl_cols[f"ref_{name}"] = self.mcc[name]
-    zc_mem = ZerocheckExtProver(
-        F, wl_cols, wl_combiner, MEMLINK_DEGREE, num_alphas=1,
-        device=unified_device(self),
-        dev_columns=unified_dev_columns(self, wl_cols),
-    ).prove(transcript)
+    zc_mem = prove_unified_zerocheck(self, mem, transcript)
     register_bc_memlink_claims(self, sink, zc_mem)
 
     self.proof = BytecodeProof(

@@ -24,6 +24,7 @@ builder.zig:77-149 (the constraint metadata proven for real here).
 
 from __future__ import annotations
 
+from functools import cached_property
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -35,7 +36,7 @@ from ..proofs.zerocheck import (
     ZerocheckProof,
     _eq_table_ext,
     absorb_ext,
-    unified_dev_columns,
+    prove_unified_zerocheck,
     unified_device,
 )
 from . import v2 as v2mod
@@ -144,19 +145,21 @@ class CoreV2Argument:
         w = self.witness
         return core_logup_advice_dev(pc_ref, npc_ref, w.num_steps, w.num_vars, self.tau_lu, self.beta_lu)
 
-    def zerocheck_phase(self, transcript, sink) -> None:
-        F, witness = self.F, self.witness
-        p = F.MODULUS
-        num_vars, num_steps = witness.num_vars, witness.num_steps
+    @cached_property
+    def zerochecks(self) -> List[ZerocheckExtProver]:
+        """The one zerocheck of the argument, made once after the advice
+        phase (prover/unified.py starts it there)."""
+        witness = self.witness
         columns = dict(self.columns)
         columns.update(self.g_coords)
-        columns.update(logup_public_tables(num_steps, num_vars, p))
-        zc = ZerocheckExtProver(
-            F, columns, make_v2_combiner(self.tau_lu, self.beta_lu),
-            V2_DEGREE, num_alphas=NUM_V2_ALPHAS,
-            device=unified_device(self),
-            dev_columns=unified_dev_columns(self, columns),
-        ).prove(transcript)
+        columns.update(logup_public_tables(witness.num_steps, witness.num_vars, self.F.MODULUS))
+        return [ZerocheckExtProver(self.F, columns, make_v2_combiner(self.tau_lu, self.beta_lu), V2_DEGREE,
+                                   num_alphas=NUM_V2_ALPHAS, device=unified_device(self))]
+
+    def zerocheck_phase(self, transcript, sink) -> None:
+        p = self.F.MODULUS
+        (spec,) = self.zerochecks
+        zc = prove_unified_zerocheck(self, spec, transcript)
         self.zc = zc
 
         for name in sorted(zc.column_evals):

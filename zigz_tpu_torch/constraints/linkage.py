@@ -46,7 +46,7 @@ from ..proofs.zerocheck import (
     ZerocheckExtProver,
     ZerocheckExtVerifier,
     ZerocheckProof,
-    unified_dev_columns,
+    prove_unified_zerocheck,
     unified_device,
 )
 from .regcheck import g_coord_names, g_eval_from_coords, pack_g_coords, sum_claim_values
@@ -58,6 +58,7 @@ __all__ = [
     "gadget_linkage_scalars",
     "link_deltas",
     "prove_query_links",
+    "query_link_zerochecks",
     "verify_query_links",
 ]
 
@@ -285,31 +286,33 @@ def build_query_link_advice(F, transcript, validity_info: List[dict],
     return out, total
 
 
-def prove_query_links(F, transcript, sink, validity_info: List[dict],
-                      tau_l, delta, bc_locmap) -> List[QueryLinkRecord]:
-    """ZEROCHECK phase of the query linkage: per-table zerochecks over
-    the validity argument's committed query columns + the g_lk advice,
-    registering claims on the shared commitments (validity columns via
-    each table's ``arg`` locmap; g_lk via the bytecode locmap)."""
-    from ..core.ext4 import ext_lift as _lift
-
+def query_link_zerochecks(F, validity_info: List[dict], tau_l, delta) -> List[ZerocheckExtProver]:
+    """The query linkage's zerochecks, one a table, over the validity
+    argument's committed query columns + the g_lk advice (made after the
+    advice phase; prover/unified.py starts them there)."""
     p = F.MODULUS
-    records: List[QueryLinkRecord] = []
     dl = link_deltas(delta, p)
+    out = []
     for info in validity_info:
-        tid = info["tid"]
-        gadget = info["gadget"]
         zc_cols = dict(info["cols"])
         zc_cols.update(pack_g_coords({"g_lk": info["g_lk"]}))
         zc_cols["__sel__"] = info["sel"]
-        combiner = _make_link_combiner(gadget, tid, tau_l, dl, p)
-        zc = ZerocheckExtProver(
-            F, zc_cols, combiner, LINKAGE_DEGREE, num_alphas=1,
-            device=unified_device(info["arg"]),
-            dev_columns=unified_dev_columns(
-                info["arg"], zc_cols, rename=lambda n, t=tid: f"t{t}:{n}"
-            ),
-        ).prove(transcript)
+        combiner = _make_link_combiner(info["gadget"], info["tid"], tau_l, dl, p)
+        out.append(ZerocheckExtProver(F, zc_cols, combiner, LINKAGE_DEGREE, num_alphas=1,
+                                      device=unified_device(info["arg"])))
+    return out
+
+
+def prove_query_links(transcript, sink, validity_info: List[dict], zerochecks: List[ZerocheckExtProver],
+                      bc_locmap) -> List[QueryLinkRecord]:
+    """ZEROCHECK phase of the query linkage: the per-table
+    ``query_link_zerochecks``, registering claims on the shared
+    commitments (validity columns via each table's ``arg`` locmap; g_lk via
+    the bytecode locmap)."""
+    records: List[QueryLinkRecord] = []
+    for info, spec in zip(validity_info, zerochecks):
+        tid = info["tid"]
+        zc = prove_unified_zerocheck(info["arg"], spec, transcript, rename=lambda n, t=tid: f"t{t}:{n}")
         records.append(QueryLinkRecord(
             table_id=tid, num_queries=info["nq"], num_vars=info["v"],
             zc=zc, g_sum=info["g_lk_sum"],

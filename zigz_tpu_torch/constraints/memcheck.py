@@ -43,6 +43,7 @@ the 2^16 domain, closed-form key MLE), as in regcheck.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,7 +62,7 @@ from ..proofs.zerocheck import (
     ZerocheckExtVerifier,
     ZerocheckProof,
     absorb_ext,
-    unified_dev_columns,
+    prove_unified_zerocheck,
     unified_device,
 )
 from .regcheck import g_coord_names, g_eval_from_coords, pack_g_coords, sum_claim_values
@@ -500,30 +501,30 @@ class MemcheckArgument:
         self.h_sum = h_sum
         return {**self.g_coords, **self.h_coords}
 
-    def zerocheck_phase(self, transcript, sink) -> None:
-        from .regcheck import register_claims
-
+    @cached_property
+    def zerochecks(self) -> List[ZerocheckExtProver]:
+        """The trace-domain and the RANGE16 zerocheck, in proving order,
+        made once after the advice phase (prover/unified.py starts them
+        there)."""
         F = self.F
         p = F.MODULUS
         all_cols = dict(self.cols)
         all_cols.update(self.g_coords)
         all_cols["__sel__"] = self.sel
         all_cols["__idx__"] = self.idx % np.uint64(p)
-        zc = ZerocheckExtProver(
-            F, all_cols, _make_combiner(self.tau_m, self.tau_r, self.gamma, p),
-            MEMCHECK_DEGREE, num_alphas=NUM_CONSTRAINTS,
-            device=unified_device(self),
-            dev_columns=unified_dev_columns(self, all_cols),
-        ).prove(transcript)
-
         table_cols = {"m": self.m_col, "__key__": idx_table(16, p)}
         table_cols.update(self.h_coords)
-        zc_t = ZerocheckExtProver(
-            F, table_cols, _make_table_combiner(self.tau_r), MEMCHECK_DEGREE,
-            num_alphas=1,
-            device=unified_device(self),
-            dev_columns=unified_dev_columns(self, table_cols),
-        ).prove(transcript)
+        return [
+            ZerocheckExtProver(F, all_cols, _make_combiner(self.tau_m, self.tau_r, self.gamma, p),
+                               MEMCHECK_DEGREE, num_alphas=NUM_CONSTRAINTS, device=unified_device(self)),
+            ZerocheckExtProver(F, table_cols, _make_table_combiner(self.tau_r), MEMCHECK_DEGREE,
+                               num_alphas=1, device=unified_device(self)),
+        ]
+
+    def zerocheck_phase(self, transcript, sink) -> None:
+        from .regcheck import register_claims
+
+        zc, zc_t = (prove_unified_zerocheck(self, z, transcript) for z in self.zerochecks)
 
         self.proof = MemCheckProof(
             nonce=self.nonce, num_vars=self.num_vars, num_accesses=self.A,

@@ -58,6 +58,7 @@ trick).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -77,7 +78,7 @@ from ..proofs.zerocheck import (
     ZerocheckExtVerifier,
     ZerocheckProof,
     absorb_ext,
-    unified_dev_columns,
+    prove_unified_zerocheck,
     unified_device,
 )
 
@@ -548,28 +549,28 @@ class RegcheckArgument:
             data_state.device_column(f"{self.ns}:m", required=True),
         )
 
-    def zerocheck_phase(self, transcript, sink) -> None:
+    @cached_property
+    def zerochecks(self) -> List[ZerocheckExtProver]:
+        """The trace-domain and the RANGE16 zerocheck, in proving order,
+        made once after the advice phase (prover/unified.py starts them
+        there)."""
         F = self.F
         p = F.MODULUS
         all_cols = dict(self.cols)
         all_cols.update(self.g_coords)
         all_cols["__sel__"] = self.sel
         all_cols["__idx__"] = self.idx % np.uint64(p)
-        zc = ZerocheckExtProver(
-            F, all_cols, _make_combiner(self.tau_m, self.tau_r, self.gamma, p),
-            REGCHECK_DEGREE, num_alphas=NUM_CONSTRAINTS,
-            device=unified_device(self),
-            dev_columns=unified_dev_columns(self, all_cols),
-        ).prove(transcript)
-
         table_cols = {"m": self.m_col, "__key__": idx_table(16, p)}
         table_cols.update(self.h_coords)
-        zc_t = ZerocheckExtProver(
-            F, table_cols, _make_table_combiner(self.tau_r), REGCHECK_DEGREE,
-            num_alphas=1,
-            device=unified_device(self),
-            dev_columns=unified_dev_columns(self, table_cols),
-        ).prove(transcript)
+        return [
+            ZerocheckExtProver(F, all_cols, _make_combiner(self.tau_m, self.tau_r, self.gamma, p),
+                               REGCHECK_DEGREE, num_alphas=NUM_CONSTRAINTS, device=unified_device(self)),
+            ZerocheckExtProver(F, table_cols, _make_table_combiner(self.tau_r), REGCHECK_DEGREE,
+                               num_alphas=1, device=unified_device(self)),
+        ]
+
+    def zerocheck_phase(self, transcript, sink) -> None:
+        zc, zc_t = (prove_unified_zerocheck(self, z, transcript) for z in self.zerochecks)
 
         self.proof = RegCheckProof(
             nonce=self.nonce, num_vars=self.num_vars,

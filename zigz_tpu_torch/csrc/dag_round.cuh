@@ -19,15 +19,18 @@
 // body as straight-line C++ over SSA values (`const auto v7 = mul(v3, c[12]);`)
 // and includes this header, which holds everything else.  So there is no
 // decode and no slot traffic: values live in registers, which ptxas
-// allocates.  The shipped design cuts the body into __noinline__ segments
-// of 250 instructions; a value that a later segment reads crosses the cut
+// allocates.  The generator cuts the body into __noinline__ segments of
+// 250 instructions; a value that a later segment reads crosses the cut
 // through a per-thread array in local memory (L1), at the program's own
 // slot.  Whole bodies of thousands of instructions took ptxas tens of
 // minutes and spilled; cut, the largest program builds in about a minute.
 // __launch_bounds__ asks for five blocks of 128 threads an SM (at most 96
 // registers a thread), so 20 warps hide the latency of the loads and of
-// the spills.  A plane row is read where the program (or a segment) first
-// uses it and formed once per lane-point, lo R + t (hi - lo) R, as
+// the spills; on an H100 that beat 255 registers a thread, at most 128,
+// six blocks and 256 threads a block (PERF.md, PR 9).
+//
+// A plane row is read where the program (or a segment) first uses it and
+// formed once per lane-point, lo R + t (hi - lo) R, as
 // REDC(lo R^2 + (hi - lo) t R^2): two products below 2 p^2 < p 2^32 in one
 // REDC.  Its loads depend on nothing, so the compiler issues them early.
 // The constants of this prove are a __grid_constant__ parameter (up to
@@ -35,25 +38,24 @@
 // table at launch: the program depends on the DAG alone, no table is
 // uploaded, and a warp reads a constant from parameter space, the same
 // address for every thread, rather than through a pointer to device
-// memory.  One thread takes
-// one lane at one point, and the point is the fastest block index, so the
-// `degree` blocks of one lane tile run side by side and read the same
-// plane lines, which L2 keeps (ZIGZ_DAG_POINTS = D instead runs the D
-// points of a lane in one thread, at D times the live values: slower).
+// memory.  One thread takes one lane at one point, and the point is the
+// fastest block index, so the `degree` blocks of one lane tile run side by
+// side and read the same plane lines, which L2 keeps.  (All of a lane's
+// points in one thread, at `degree` times the live values, ran 14-27%
+// slower on an H100: PERF.md.)
 //
-// The epilogue is the interpreter's: the eq row's product for a base-field program,
-// then each output summed over the warp in u64 and added atomically to the
-// (degree, n_out) u64 buffer that the launcher zeroes.  Values are
-// Montgomery u32 below p, so 2^32 lanes sum below 2^63; the sums stay in
-// Montgomery form and the wrapper converts them once (the sum is linear).
+// The epilogue is the interpreter's: the eq row's product for a base-field
+// program, then each output summed over the warp in u64 and added
+// atomically to the (degree, n_out) u64 buffer that the launcher zeroes.
+// Values are Montgomery u32 below p, so 2^32 lanes sum below 2^63; the
+// sums stay in Montgomery form and the wrapper converts them once (the sum
+// is linear).
 //
-// A generated unit defines ZIGZ_DAG_N_OUT (1 to 4), ZIGZ_DAG_N_CONSTS,
-// ZIGZ_DAG_THREADS, ZIGZ_DAG_MIN_BLOCKS (__launch_bounds__) and
-// ZIGZ_DAG_POINTS, includes this header, and defines
-// zigz_dag::body.  Under nvcc it is a kernel and its extern "C" launcher,
-// zigz_dag_round_sums; under a host compiler the same body runs in
-// zigz_dag_host, the CPU tests' entry, with the same point formation and
-// the same u64 sums.
+// A generated unit defines ZIGZ_DAG_N_OUT (1 to 4) and ZIGZ_DAG_N_CONSTS,
+// includes this header, and defines zigz_dag::body.  Under nvcc it is a
+// kernel and its extern "C" launcher, zigz_dag_round_sums; under a host
+// compiler the same body runs in zigz_dag_host, the CPU tests' entry, with
+// the same point formation and the same u64 sums.
 #pragma once
 
 #include <cstdint>
@@ -61,16 +63,20 @@
 
 #include "babybear.cuh"
 
-#if !defined(ZIGZ_DAG_N_OUT) || !defined(ZIGZ_DAG_N_CONSTS) || !defined(ZIGZ_DAG_THREADS) || \
-    !defined(ZIGZ_DAG_MIN_BLOCKS) || !defined(ZIGZ_DAG_POINTS)
+#if !defined(ZIGZ_DAG_N_OUT) || !defined(ZIGZ_DAG_N_CONSTS)
 #error "dag_round.cuh is included by a generated program, after its ZIGZ_DAG_* definitions"
 #endif
 
+// The generated body and its segments: device code alone under nvcc (its
+// host pass would otherwise compile every segment with the host compiler
+// too), host code under a host compiler.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
-#define ZIGZ_DAG_SEGMENT __host__ __device__ __noinline__
+#define ZIGZ_DAG_SEGMENT __device__ __noinline__
+#define ZIGZ_DAG_BODY __device__ __forceinline__
 #else
 #define ZIGZ_DAG_SEGMENT __attribute__((noinline))
+#define ZIGZ_DAG_BODY inline
 #endif
 #ifdef __CUDA_ARCH__
 #define ZIGZ_DAG_LOAD(p) __ldg(p)
@@ -89,53 +95,15 @@ using zigz::sub_mod;
 
 constexpr int kOut = ZIGZ_DAG_N_OUT;
 constexpr int kConsts = ZIGZ_DAG_N_CONSTS;
-constexpr int kThreads = ZIGZ_DAG_THREADS;
-constexpr int kPoints = ZIGZ_DAG_POINTS;
+constexpr int kThreads = 128;  // a block
+constexpr int kMinBlocks = 5;  // an SM (__launch_bounds__): at most 96 registers a thread
 constexpr int kMaxDegree = 16;
 static_assert(kOut >= 1 && kOut <= 4, "1 to 4 outputs");
-static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps");
 
-// The D points of one lane, for ZIGZ_DAG_POINTS = D.
-template <int D>
-struct Pts {
-  uint32_t v[D];
-};
-
-// The program's three operations on one value, and on the D points of a
-// lane (a constant operand is one value for every point).
+// The program's three operations.
 ZIGZ_HD uint32_t add(uint32_t a, uint32_t b) { return add_mod(a, b); }
 ZIGZ_HD uint32_t sub(uint32_t a, uint32_t b) { return sub_mod(a, b); }
 ZIGZ_HD uint32_t mul(uint32_t a, uint32_t b) { return mont_mul(a, b); }
-ZIGZ_HD void splat(uint32_t& out, uint32_t c) { out = c; }
-
-#define ZIGZ_DAG_LIFT(op)                                                      \
-  template <int D>                                                             \
-  ZIGZ_HD Pts<D> op(const Pts<D>& a, const Pts<D>& b) {                        \
-    Pts<D> r;                                                                  \
-    for (int k = 0; k < D; ++k) r.v[k] = op(a.v[k], b.v[k]);                   \
-    return r;                                                                  \
-  }                                                                            \
-  template <int D>                                                             \
-  ZIGZ_HD Pts<D> op(const Pts<D>& a, uint32_t b) {                             \
-    Pts<D> r;                                                                  \
-    for (int k = 0; k < D; ++k) r.v[k] = op(a.v[k], b);                        \
-    return r;                                                                  \
-  }                                                                            \
-  template <int D>                                                             \
-  ZIGZ_HD Pts<D> op(uint32_t a, const Pts<D>& b) {                             \
-    Pts<D> r;                                                                  \
-    for (int k = 0; k < D; ++k) r.v[k] = op(a, b.v[k]);                        \
-    return r;                                                                  \
-  }
-ZIGZ_DAG_LIFT(add)
-ZIGZ_DAG_LIFT(sub)
-ZIGZ_DAG_LIFT(mul)
-#undef ZIGZ_DAG_LIFT
-
-template <int D>
-ZIGZ_HD void splat(Pts<D>& out, uint32_t c) {
-  for (int k = 0; k < D; ++k) out.v[k] = c;
-}
 
 // The point of index k among (0, 2, 3, .., degree), as t R^2 mod p.
 ZIGZ_HD uint32_t point_r2(int k) {
@@ -158,28 +126,9 @@ struct PointRows {
   }
 };
 
-// Plane row r at the D points of a lane: lo and hi read once.
-template <int D>
-struct LaneRows {
-  const uint32_t* lo;
-  int64_t row_words;
-  int64_t hi_words;
-  uint32_t t_r2[D];
-  ZIGZ_HD Pts<D> operator()(int r) const {
-    const uint32_t* p = lo + r * row_words;
-    const uint32_t a = ZIGZ_DAG_LOAD(p);
-    const uint64_t d = sub_mod(ZIGZ_DAG_LOAD(p + hi_words), a);
-    const uint64_t am = static_cast<uint64_t>(a) * kR2;
-    Pts<D> out;
-    for (int k = 0; k < D; ++k) out.v[k] = redc(am + d * t_r2[k]);
-    return out;
-  }
-};
-
-// The generated program: out[o] of the lane-point(s) that `row` reads,
-// with the constant table c (Montgomery u32).
-template <class V, class Rows>
-ZIGZ_HD void body(const Rows& row, const uint32_t* __restrict__ c, V* __restrict__ out);
+// The generated program: out[o] of the lane-point that `row` reads, with
+// the constant table c (Montgomery u32).
+ZIGZ_DAG_BODY void body(const PointRows& row, const uint32_t* __restrict__ c, uint32_t* __restrict__ out);
 
 struct Consts {
   uint32_t v[kConsts > 0 ? kConsts : 1];
@@ -188,7 +137,6 @@ struct Consts {
 // The launch's checks, shared by both entries: 0 or a reason.
 inline int bad_launch(int64_t width, int degree, int eq_row, int n_consts) {
   if (n_consts != kConsts || degree < 1 || degree > kMaxDegree || width < 0) return 1;
-  if (kPoints != 0 && degree != kPoints) return 1;
   if (eq_row >= 0 && kOut != 1) return 1;
   return 0;
 }
@@ -207,24 +155,19 @@ __device__ __forceinline__ unsigned long long warp_sum(unsigned long long s) {
   return s;
 }
 
-__global__ void __launch_bounds__(ZIGZ_DAG_THREADS, ZIGZ_DAG_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 zigz_dag_round_sums_kernel(const int64_t* __restrict__ planes, int64_t width, int degree, int eq_row,
                            unsigned long long* __restrict__ sums, const __grid_constant__ Consts consts) {
   const int64_t half = width >> 1;
-#if ZIGZ_DAG_POINTS == 0
   const int k = static_cast<int>(blockIdx.x % static_cast<unsigned int>(degree));
   int64_t j = static_cast<int64_t>(blockIdx.x / static_cast<unsigned int>(degree)) * kThreads + threadIdx.x;
-#else
-  int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-#endif
   const bool active = j < half;
   if (!active) j = half - 1;  // computes a valid lane and adds nothing
   const uint32_t* lo = reinterpret_cast<const uint32_t*>(planes + j);
   const bool lead = (threadIdx.x & 31) == 0;
-#if ZIGZ_DAG_POINTS == 0
   const PointRows rows{lo, 2 * width, k == 0 ? 0 : 2 * half, point_r2(k)};
   uint32_t out[kOut];
-  body<uint32_t>(rows, consts.v, out);
+  body(rows, consts.v, out);
   const uint32_t eq = eq_row >= 0 ? rows(eq_row) : 0u;
 #pragma unroll
   for (int o = 0; o < kOut; ++o) {
@@ -232,24 +175,6 @@ zigz_dag_round_sums_kernel(const int64_t* __restrict__ planes, int64_t width, in
     const unsigned long long s = warp_sum(active ? v : 0ull);
     if (lead) atomicAdd(sums + k * kOut + o, s);
   }
-#else
-  LaneRows<kPoints> rows{lo, 2 * width, 2 * half, {}};
-#pragma unroll
-  for (int k = 0; k < kPoints; ++k) rows.t_r2[k] = point_r2(k);
-  Pts<kPoints> out[kOut];
-  body<Pts<kPoints>>(rows, consts.v, out);
-  Pts<kPoints> eq{};
-  if (eq_row >= 0) eq = rows(eq_row);
-#pragma unroll
-  for (int k = 0; k < kPoints; ++k) {
-#pragma unroll
-    for (int o = 0; o < kOut; ++o) {
-      const uint32_t v = eq_row >= 0 ? mont_mul(out[o].v[k], eq.v[k]) : out[o].v[k];
-      const unsigned long long s = warp_sum(active ? v : 0ull);
-      if (lead) atomicAdd(sums + k * kOut + o, s);
-    }
-  }
-#endif
 }
 
 }  // namespace
@@ -270,7 +195,7 @@ int zigz_dag_round_sums(const void* planes, int64_t width, int degree, int eq_ro
   Consts cs{};
   if (kConsts > 0) std::memcpy(cs.v, consts, sizeof(uint32_t) * kConsts);
   const int64_t tiles = (half + kThreads - 1) / kThreads;
-  const int64_t blocks = kPoints != 0 ? tiles : tiles * degree;
+  const int64_t blocks = tiles * degree;
   if (blocks > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
   zigz_dag_round_sums_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, st>>>(
       static_cast<const int64_t*>(planes), width, degree, eq_row, static_cast<unsigned long long*>(sums), cs);
@@ -292,11 +217,10 @@ extern "C" int zigz_dag_host(const int64_t* planes, int64_t width, int degree, i
   for (int i = 0; i < degree * kOut; ++i) sums[i] = 0;
   for (int64_t j = 0; j < half; ++j) {
     const uint32_t* lo = reinterpret_cast<const uint32_t*>(planes + j);
-#if ZIGZ_DAG_POINTS == 0
     for (int k = 0; k < degree; ++k) {
       const PointRows rows{lo, 2 * width, k == 0 ? 0 : 2 * half, point_r2(k)};
       uint32_t out[kOut];
-      body<uint32_t>(rows, consts, out);
+      body(rows, consts, out);
       const uint32_t eq = eq_row >= 0 ? rows(eq_row) : 0u;
       for (int o = 0; o < kOut; ++o) {
         const uint32_t v = eq_row >= 0 ? mont_mul(out[o], eq) : out[o];
@@ -304,21 +228,6 @@ extern "C" int zigz_dag_host(const int64_t* planes, int64_t width, int degree, i
         sums[k * kOut + o] += v;
       }
     }
-#else
-    LaneRows<kPoints> rows{lo, 2 * width, 2 * half, {}};
-    for (int k = 0; k < kPoints; ++k) rows.t_r2[k] = point_r2(k);
-    Pts<kPoints> out[kOut];
-    body<Pts<kPoints>>(rows, consts, out);
-    Pts<kPoints> eq{};
-    if (eq_row >= 0) eq = rows(eq_row);
-    for (int k = 0; k < kPoints; ++k) {
-      for (int o = 0; o < kOut; ++o) {
-        const uint32_t v = eq_row >= 0 ? mont_mul(out[o].v[k], eq.v[k]) : out[o].v[k];
-        lanes[(static_cast<int64_t>(k) * kOut + o) * half + j] = v;
-        sums[k * kOut + o] += v;
-      }
-    }
-#endif
   }
   return 0;
 }

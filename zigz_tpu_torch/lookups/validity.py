@@ -80,6 +80,7 @@ rejected by the linkage (tests/test_bytecode.py).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -102,7 +103,7 @@ from ..proofs.zerocheck import (
     ZerocheckExtVerifier,
     ZerocheckProof,
     absorb_ext,
-    unified_dev_columns,
+    prove_unified_zerocheck,
     unified_device,
 )
 
@@ -1680,27 +1681,41 @@ class ValidityArgument:
                 raise AssertionError(f"lookup validity violated: {name} multiset mismatch")
         return out
 
+    @cached_property
+    def zerochecks(self) -> List[ZerocheckExtProver]:
+        """One zerocheck a table, then the subtable side's, in proving
+        order, made once after the advice phase (prover/unified.py starts
+        them there)."""
+        if not self.table_ids:
+            return []
+        F = self.F
+        out = []
+        for tid in self.table_ids:
+            info = self.per_table[tid]
+            all_cols = dict(info["cols"])
+            all_cols.update(info["g_coords"])
+            out.append(ZerocheckExtProver(F, all_cols, _make_query_combiner(info["gadget"], self.tau),
+                                          VALIDITY_DEGREE, num_alphas=_num_constraints(info["gadget"]),
+                                          device=unified_device(self)))
+        table_cols = dict(self.m_cols)
+        table_cols.update(self.h_coords)
+        for name in self.sub_names:
+            table_cols[f"__key_{name}__"] = self.dense_keys[name]
+        out.append(ZerocheckExtProver(F, table_cols, _make_table_combiner(self.sub_names, self.tau),
+                                      VALIDITY_DEGREE, num_alphas=len(self.sub_names),
+                                      device=unified_device(self)))
+        return out
+
     def zerocheck_phase(self, transcript, sink) -> None:
         if not self.table_ids:
             return
-        F = self.F
-        p = F.MODULUS
         from ..core.ext4 import ext_lift
 
+        *table_zcs, side = self.zerochecks
         records = []
-        for tid in self.table_ids:
+        for tid, spec in zip(self.table_ids, table_zcs):
             info = self.per_table[tid]
-            gadget = info["gadget"]
-            all_cols = dict(info["cols"])
-            all_cols.update(info["g_coords"])
-            zc = ZerocheckExtProver(
-                F, all_cols, _make_query_combiner(gadget, self.tau),
-                VALIDITY_DEGREE, num_alphas=_num_constraints(gadget),
-                device=unified_device(self),
-                dev_columns=unified_dev_columns(
-                    self, all_cols, rename=lambda n, t=tid: f"t{t}:{n}"
-                ),
-            ).prove(transcript)
+            zc = prove_unified_zerocheck(self, spec, transcript, rename=lambda n, t=tid: f"t{t}:{n}")
             records.append(TableValidityRecord(
                 table_id=tid, num_queries=info["nq"], num_vars=info["v"],
                 zc=zc, g_sums=info["g_sums"],
@@ -1715,16 +1730,7 @@ class ValidityArgument:
                                    ext_lift(int(info["g_sums"][g].c[e])))
             info["zc"] = zc
 
-        table_cols = dict(self.m_cols)
-        table_cols.update(self.h_coords)
-        for name in self.sub_names:
-            table_cols[f"__key_{name}__"] = self.dense_keys[name]
-        zc_t = ZerocheckExtProver(
-            F, table_cols, _make_table_combiner(self.sub_names, self.tau),
-            VALIDITY_DEGREE, num_alphas=len(self.sub_names),
-            device=unified_device(self),
-            dev_columns=unified_dev_columns(self, table_cols),
-        ).prove(transcript)
+        zc_t = prove_unified_zerocheck(self, side, transcript)
         for name in sorted(zc_t.column_evals):
             ck, fn, v = self.locmap[name]
             sink.eval_claim(ck, fn, v, zc_t.final_point, zc_t.column_evals[name])

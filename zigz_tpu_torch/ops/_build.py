@@ -63,6 +63,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers and spills of each kernel, kept in Kernels.log
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+# NVVM optimises a generated unit's functions (its body's segments) on as
+# many threads as there are cores (0); see PERF.md, PR 9.
+GENERATED_FLAGS = ("--split-compile=0",)
 NVCC_TIMEOUT_S = 600
 
 # name -> (argtypes, restype) of every extern "C" function in csrc/.
@@ -247,12 +250,12 @@ def launch(name: str, *args) -> None:
 # -- generated units -----------------------------------------------------------
 
 
-def _generated_hash(source: str, extra_flags=()) -> str:
+def _generated_hash(source: str) -> str:
     h = hashlib.sha256(source.encode())
     for path in sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS + tuple(extra_flags)).encode())
+    h.update(" ".join(NVCC_FLAGS + GENERATED_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:20]
 
 
@@ -271,8 +274,8 @@ class GeneratedBuild:
     blocked in :meth:`wait`, ``log`` nvcc's output (the ptxas report), kept
     beside the library."""
 
-    def __init__(self, source: str, extra_flags=()):
-        self.key = _generated_hash(source, extra_flags)
+    def __init__(self, source: str):
+        self.key = _generated_hash(source)
         self.dir = BUILD_DIR / GENERATED_SUBDIR
         self.path = self.dir / f"{self.key}.so"
         self.build_s = 0.0
@@ -294,7 +297,7 @@ class GeneratedBuild:
         src = self.dir / f"{self.key}.cu"
         _publish(src, source)
         self._tmp = self.path.with_name(f"{self.path.name}.{os.getpid()}.{id(self)}.tmp")
-        started = _start([nvcc, *NVCC_FLAGS, *extra_flags, "-shared", "-I", str(CSRC), "-o", str(self._tmp),
+        started = _start([nvcc, *NVCC_FLAGS, *GENERATED_FLAGS, "-shared", "-I", str(CSRC), "-o", str(self._tmp),
                           str(src)])
         self._proc = started[1]
         self._output = KernelBuildError(f"nvcc ended without a result: {' '.join(started[0])}")
@@ -365,17 +368,16 @@ def _stop_generated() -> None:
             _kill(build._proc)
 
 
-def start_generated(source: str, extra_flags=()) -> GeneratedBuild:
-    """The build of ``source`` (with ``extra_flags`` after NVCC_FLAGS),
-    started now or found: one per hash and process, so equal programs share
-    one build and one library."""
-    key = _generated_hash(source, extra_flags)
+def start_generated(source: str) -> GeneratedBuild:
+    """The build of ``source``, started now or found: one per hash and
+    process, so equal programs share one build and one library."""
+    key = _generated_hash(source)
     with _GENERATED_LOCK:
         build = _GENERATED.get(key)
         if build is None:
             if not _GENERATED:
                 atexit.register(_stop_generated)
-            build = _GENERATED[key] = GeneratedBuild(source, tuple(extra_flags))
+            build = _GENERATED[key] = GeneratedBuild(source)
         return build
 
 

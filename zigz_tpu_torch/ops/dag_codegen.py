@@ -12,86 +12,56 @@ program's body and the definitions that header reads.
 The body is straight-line SSA: each instruction becomes
 ``const auto vN = mul(vA, c[K]);`` over earlier values, so there are no
 slots and the compiler allocates registers.  A plane row becomes a value,
-read where the program first uses it and reused by every later
-instruction that reads it (``Design.reload_after`` reads it again past that
-distance).  Constants stay runtime inputs (``c[K]``, this prove's table),
-so the source depends only on the program and the design, and structurally
-equal programs give one source and one library.
+read where the program (or a segment) first uses it and reused by every
+later instruction that reads it.  Constants stay runtime inputs (``c[K]``,
+this prove's table), so the source depends only on the program, and
+structurally equal programs give one source and one library.
 
-``Design.segment`` cuts the body into ``__noinline__`` functions of that
-many instructions each, the values live across a cut passed through a
+The body is cut into ``__noinline__`` functions of ``SEGMENT``
+instructions each: ptxas is far worse than linear in the size of one
+function (a whole body of 11,738 instructions did not build in 24 minutes
+on an H100's host; cut every 250 it builds in under a minute, and runs
+faster: PERF.md, PR 9).  The values live across a cut pass through a
 per-thread array indexed by the program's own slots (a slot is reused only
 after its value's last use, so no cut overwrites a value still to be
-read).  ``Design.points`` chooses between one point a thread (the point the
-fastest block index) and all of a lane's points in one thread.
+read).
 
 Host Python: imports neither torch, JAX nor anything of the JAX package.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 from .symtrace import KIND_CONST, KIND_ROW, KIND_SLOT, OP_ADD, OP_MUL, OP_SUB, DagProgram
 
-__all__ = ["Design", "DESIGN", "MAX_CONSTS", "generate"]
+__all__ = ["MAX_CONSTS", "SEGMENT", "generate"]
 
 # A launch's parameters may hold 32,764 bytes (CUDA 12.1 and later on
 # Volta and later); the constant table takes all but a few dozen of them.
 MAX_CONSTS = 8000
+# Instructions a segment of the body.
+SEGMENT = 250
 _OPNAME = {OP_ADD: "add", OP_SUB: "sub", OP_MUL: "mul"}
-
-
-@dataclass(frozen=True)
-class Design:
-    """How a program becomes a kernel.
-
-    ``threads``: the block size, and ``min_blocks`` the blocks an SM
-    must hold (``__launch_bounds__``; 0 leaves ptxas up to 255 registers a
-    thread).  ``points``: 0 for
-    one point a thread, the point the fastest block index, so the blocks of
-    one lane tile share the plane lines in L2; or the degree D, all D points
-    of a lane in one thread, each plane value read from HBM once, at D times
-    the live values.  ``reload_after``: None holds a row value to its last
-    use; k reads and forms it again where its last reading is more than k
-    instructions back.  ``segment``: None for one body; k cuts it into
-    functions of k instructions."""
-
-    threads: int = 128
-    min_blocks: int = 0
-    points: int = 0
-    reload_after: Optional[int] = None
-    segment: Optional[int] = None
-
-
-# The design the port ships, the fastest of those measured on the two
-# largest programs of a v2 prove on an H100 (scripts/torch_dag_designs.py;
-# PERF.md): whole bodies of thousands of instructions take ptxas tens of
-# minutes and spill, so bodies are cut every 250 instructions, and five
-# blocks of 128 threads an SM (at most 96 registers a thread) hide the
-# latency that one or two blocks at 255 registers do not.
-DESIGN = Design(segment=250, min_blocks=5)
 
 
 def _operand(opd: int):
     return opd & 3, opd >> 2
 
 
-def generate(program: DagProgram, design: Design = DESIGN) -> str:
-    """The generated unit of ``program`` under ``design``: the ZIGZ_DAG_*
-    definitions, the include of csrc/dag_round.cuh, and
-    ``zigz_dag::body``.  Deterministic: equal programs and designs give
-    equal text."""
+def generate(program: DagProgram, segment: Optional[int] = SEGMENT) -> str:
+    """The generated unit of ``program``: the ZIGZ_DAG_* definitions, the
+    include of csrc/dag_round.cuh, and ``zigz_dag::body``, cut every
+    ``segment`` instructions (None: one body; the tests build both).
+    Deterministic: equal programs give equal text."""
     n_out = len(program.outs)
     n_consts = len(program._table_nodes)
     if not 1 <= n_out <= 4:
         raise ValueError(f"the round-sum kernel takes 1 to 4 outputs, the program has {n_out}")
     if n_consts > MAX_CONSTS:
         raise ValueError(f"the program's {n_consts} constants exceed the launch parameters' {MAX_CONSTS}")
-    if (design.threads % 32 or not 32 <= design.threads <= 1024 or not 0 <= design.points <= 16
-            or not 0 <= design.min_blocks <= 32):
-        raise ValueError(f"unsupported design {design}")
+    if segment is not None and segment < 1:
+        raise ValueError(f"a segment holds at least one instruction, not {segment}")
     code = program.code.tolist()
     # SSA: instruction i defines v{i}; uses[i] (and out_defs) name the
     # instruction that defined each slot operand, None for a row or constant.
@@ -103,7 +73,7 @@ def generate(program: DagProgram, design: Design = DESIGN) -> str:
         slot_def[dst] = i
     out_defs = [slot_def[idx] if kind == KIND_SLOT else None for kind, idx in map(_operand, program.outs.tolist())]
 
-    seg = design.segment if design.segment else max(len(code), 1)
+    seg = segment or max(len(code), 1)
     bounds = [(s, min(s + seg, len(code))) for s in range(0, len(code), seg)] or [(0, 0)]
     segment_of = [i // seg for i in range(len(code))]
     segmented = len(bounds) > 1
@@ -120,13 +90,11 @@ def generate(program: DagProgram, design: Design = DESIGN) -> str:
         "// Z1 for one DAG program, generated by zigz_tpu_torch/ops/dag_codegen.py from",
         f"// {len(code)} instructions ({program.counts['mul']} mul, {program.counts['add']} add, "
         f"{program.counts['sub']} sub, {program.counts['row_reads']} row reads), {program.n_rows} rows,",
-        f"// {n_consts} constants, {n_out} outputs; {design}.  The kernel and its launcher are",
-        "// csrc/dag_round.cuh.",
+        f"// {n_consts} constants, {n_out} outputs, " + (f"cut every {segment} instructions." if segmented
+                                                          else "one body.") + "  The kernel",
+        "// and its launcher are csrc/dag_round.cuh.",
         f"#define ZIGZ_DAG_N_OUT {n_out}",
         f"#define ZIGZ_DAG_N_CONSTS {n_consts}",
-        f"#define ZIGZ_DAG_THREADS {design.threads}",
-        f"#define ZIGZ_DAG_MIN_BLOCKS {max(design.min_blocks, 1)}",
-        f"#define ZIGZ_DAG_POINTS {design.points}",
         '#include "dag_round.cuh"',
         "",
         "namespace zigz_dag {",
@@ -136,20 +104,18 @@ def generate(program: DagProgram, design: Design = DESIGN) -> str:
     def emit_range(start: int, end: int) -> List[str]:
         """The lines of instructions start..end, rows formed where read."""
         body: List[str] = []
-        rows: Dict[int, tuple] = {}  # row -> (name, instruction of its last reading)
+        rows: Dict[int, str] = {}  # row -> the name of its value
         loaded = set()
 
         def value(kind: int, idx: int, at: int, d) -> str:
             if kind == KIND_CONST:
                 return f"c[{idx}]"
             if kind == KIND_ROW:
-                have = rows.get(idx)
-                if have is None or (design.reload_after is not None and at - have[1] > design.reload_after):
-                    name = f"r{idx}_{at}"
+                name = rows.get(idx)
+                if name is None:
+                    name = rows[idx] = f"r{idx}"
                     body.append(f"  const auto {name} = row({idx});")
-                    have = (name, at)
-                rows[idx] = (have[0], at)
-                return have[0]
+                return name
             if segmented and segment_of[d] < segment_of[start] and d not in loaded:
                 loaded.add(d)
                 body.append(f"  const auto v{d} = s[{code[d][1]}];")
@@ -166,23 +132,22 @@ def generate(program: DagProgram, design: Design = DESIGN) -> str:
 
     if segmented:
         for k, (start, end) in enumerate(bounds):
-            lines.append("template <class V, class Rows>")
-            lines.append(f"ZIGZ_DAG_SEGMENT void segment{k}(const Rows row, const uint32_t* __restrict__ c, "
-                         "V* __restrict__ s) {")
+            lines.append(f"ZIGZ_DAG_SEGMENT void segment{k}(const PointRows row, const uint32_t* __restrict__ c, "
+                         "uint32_t* __restrict__ s) {")
             lines += emit_range(start, end)
             lines.append("}")
             lines.append("")
-    lines.append("template <class V, class Rows>")
-    lines.append("ZIGZ_HD void body(const Rows& row, const uint32_t* __restrict__ c, V* __restrict__ out) {")
+    lines.append("ZIGZ_DAG_BODY void body(const PointRows& row, const uint32_t* __restrict__ c, "
+                 "uint32_t* __restrict__ out) {")
     if segmented:
-        lines.append(f"  V s[{max(program.n_slots, 1)}];")
-        lines += [f"  segment{k}<V>(row, c, s);" for k in range(len(bounds))]
+        lines.append(f"  uint32_t s[{max(program.n_slots, 1)}];")
+        lines += [f"  segment{k}(row, c, s);" for k in range(len(bounds))]
     else:
         lines += emit_range(0, len(code))
     for o, opd in enumerate(program.outs.tolist()):
         kind, idx = _operand(opd)
         if kind == KIND_CONST:
-            lines.append(f"  splat(out[{o}], c[{idx}]);")
+            lines.append(f"  out[{o}] = c[{idx}];")
         elif kind == KIND_ROW:
             lines.append(f"  out[{o}] = row({idx});")
         elif segmented:

@@ -8,24 +8,29 @@ signature.  Here a traced DAG is lowered to a program (ops/symtrace.py
 ops/_build.py compiles it with nvcc (``build/zigz_tpu_torch/dag/``), and
 one launch gives a round's sums at every point over the whole width.
 
-``prepare`` starts the build of a program's kernel without waiting (the
-zerocheck provers call it when they are constructed); ``round_sums``
-waits for it, adding the wait to ``WAITED["build_s"]``, and launches it
-for a CUDA tensor, and runs the plain version, ``plain_round_sums``
-(``_round_sums_plain`` over ``compile_dag``'s torch ops), for a CPU
-tensor; it never falls back from one to the other.  ``LAUNCHES`` counts
-Z1's launches.
+``program`` lowers a traced DAG once per process, keyed by its signature
+and row map, and on a CUDA device starts its kernel's build without
+waiting (the zerocheck provers ask for their programs when they are
+constructed, and prover/unified.py constructs them right after each
+argument's advice phase, so every build of a prove starts before the
+first zerocheck); ``round_sums`` waits for the build, adding the wait to
+``WAITED["build_s"]``, and launches it for a CUDA tensor, and runs the
+plain version, ``plain_round_sums`` (``_round_sums_plain`` over
+``compile_dag``'s torch ops), for a CPU tensor; it never falls back from
+one to the other.  ``LAUNCHES`` counts Z1's launches.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
 from . import _build, dag_codegen
 from .babybear import P
-from .symtrace import R_MONT_INV, DagProgram, ProgramConstants
+from .symtrace import R_MONT_INV, DagProgram, ProgramConstants, compile_device
 
-__all__ = ["round_sums", "plain_round_sums", "prepare", "SWEEP_CHUNK", "LAUNCHES", "WAITED"]
+__all__ = ["round_sums", "plain_round_sums", "program", "prepare", "SWEEP_CHUNK", "LAUNCHES", "WAITED"]
 
 # Widest slice of the half-tables that one DAG pass of the plain version
 # evaluates (at all its ``degree`` points at once); wider rounds run in
@@ -37,6 +42,26 @@ LAUNCHES = {"round_sums": 0}
 # Seconds spent waiting on nvcc for generated kernels, since the last reset.
 WAITED = {"build_s": 0.0}
 MAX_OUTPUTS = 4
+
+# Every program lowered in this process, by (DAG signature, row map).
+_PROGRAMS: Dict[tuple, DagProgram] = {}
+
+
+def program(trace, outs, row_of: Dict[str, int], device: torch.device) -> DagProgram:
+    """The program of ``trace`` (ops/symtrace.py, its ``nodes``) with
+    outputs ``outs`` under ``row_of``: lowered on first use in this process
+    and found by the trace's signature after that, so a later prove skips
+    ``compile_device``, the generator and the hash.  On a CUDA ``device``
+    its kernel's build is started (or found: a structurally equal program
+    shares it) without waiting; raises KernelBuildError where nvcc is
+    missing."""
+    key = (trace.signature, tuple(outs), tuple(sorted(row_of.items())))
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        prog = _PROGRAMS[key] = compile_device(trace.nodes, outs, row_of)
+    if device.type == "cuda":
+        prepare(prog)
+    return prog
 
 
 def prepare(program: DagProgram) -> _build.GeneratedBuild:
@@ -117,25 +142,17 @@ def round_sums(program: DagProgram, consts: ProgramConstants, planes: torch.Tens
         return plain_round_sums(program, consts, planes, degree, eq)
     if planes.device.type != "cuda":
         raise ValueError(f"round_sums: unsupported device {planes.device}")
+    build = prepare(program)
     _build.load()  # build, or raise, before anything touches the card
-    return launch(prepare(program), consts, planes, degree, eq)
-
-
-def launch(build: _build.GeneratedBuild, consts: ProgramConstants, planes: torch.Tensor, degree: int,
-           eq: int = None) -> torch.Tensor:
-    """One launch of the generated kernel ``build`` (of ``consts.program``,
-    under any design of ops/dag_codegen.py) on checked CUDA ``planes``:
-    waits for the build, then the (degree, n_out) canonical sums on the
-    host."""
     waited = build.waited_s
     lib = build.wait()
     WAITED["build_s"] += build.waited_s - waited
     dev = planes.device
-    sums = torch.empty((degree, len(consts.program.outs)), dtype=torch.int64, device=dev)
+    sums = torch.empty((degree, n_out), dtype=torch.int64, device=dev)
     table = consts.montgomery  # host u32, copied into the launch's parameters
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(lib.zigz_dag_round_sums(planes.data_ptr(), planes.shape[1], degree, -1 if eq is None else eq,
+        _build.check(lib.zigz_dag_round_sums(planes.data_ptr(), width, degree, -1 if eq is None else eq,
                                              table.ctypes.data, len(table), sums.data_ptr(), stream),
                      "zigz_dag_round_sums")
     LAUNCHES["round_sums"] += 1

@@ -10,9 +10,12 @@ round's sums at every point over the whole width (ops/dag_dev.py
 ``round_sums``, a kernel generated for the program by ops/dag_codegen.py),
 Z2 folds every table by the round's challenge into the next round's layout
 (ops/ext4_dev.py ``fold_planes``, csrc/zerocheck_kernels.cu).  The two
-programs of a zerocheck (round 0, later rounds) are lowered from the probe
-traces when the prover is constructed, and on a card their kernels' builds
-start there (``dag_dev.prepare``); the first round waits for them.  All
+programs of a zerocheck (round 0, later rounds) are found or lowered from
+the probe traces when the prover is constructed (``dag_dev.program``, once
+per DAG signature in a process), and on a card their kernels' builds start
+there; the first round waits for them.  prover/unified.py constructs the
+provers right after each argument's advice phase
+(``ZerocheckExtProver.start``).  All
 three provers emit byte-identical transcripts and proofs
 (tests/test_torch_zerocheck.py).
 
@@ -57,7 +60,7 @@ from ..core.ext4 import Ext4, challenge_ext, ext_from_ints
 from ..device import resolve_device
 from . import dag_dev, ext4_dev
 from .babybear import P
-from .symtrace import TraceError, compile_device, trace_combiner_ext
+from .symtrace import TraceError, trace_combiner_ext
 
 __all__ = ["GenericDeviceZerocheckExt", "HOST_TAIL_EXT", "DEVICE_PROVES", "COLUMNS", "reset_counters", "fold_groups"]
 
@@ -128,11 +131,8 @@ class GenericDeviceZerocheckExt:
                                           lift_base=True)
         # The programs depend on the DAGs' structure alone, which prove()
         # holds equal to the probes'; on a card their kernels start building.
-        self.programs = tuple(compile_device(tr.nodes, tr.outs, row_of)
+        self.programs = tuple(dag_dev.program(tr, tr.outs, row_of, self.device)
                               for tr, row_of in zip((self._probe1, self._probe2), self._row_maps()))
-        if self.device.type == "cuda":
-            for program in self.programs:
-                dag_dev.prepare(program)
         DEVICE_PROVES["zerocheck_host_s"] += time.perf_counter() - t0
 
     # ------------------------------------------------------------------

@@ -48,7 +48,7 @@ from ..parallel import dist
 from . import dag_dev
 from .babybear import P
 from .mle import fold_msb
-from .symtrace import TraceError, compile_device, trace_combiner
+from .symtrace import TraceError, trace_combiner
 
 __all__ = ["GenericDeviceZerocheck", "eq_table_device", "HOST_TAIL", "DEVICE_PROVES"]
 
@@ -111,9 +111,7 @@ class GenericDeviceZerocheck:
         self.eq_row = len(self.names)
         row_of = {name: i for i, name in enumerate(self.names)}
         row_of["__eq__"] = self.eq_row
-        self.program = compile_device(self._probe_trace.nodes, [self._probe_trace.out], row_of)
-        if self.device.type == "cuda":
-            dag_dev.prepare(self.program)
+        self.program = dag_dev.program(self._probe_trace, [self._probe_trace.out], row_of, self.device)
 
     def prove(self, transcript: FiatShamirTranscript):
         from ..proofs.zerocheck import ZerocheckProof, ZerocheckProver, _fold_msb, _interp_eval

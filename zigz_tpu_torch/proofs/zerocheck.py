@@ -465,6 +465,23 @@ class ZerocheckExtProver:
         # commitment's matrix on that device, for (some) base columns.
         self.dev_columns = dev_columns
         self.device = device
+        self._device_prover = None
+
+    def start(self) -> "ZerocheckExtProver":
+        """With a device, make the device prover now: it traces the
+        combiner and its programs' kernels start building
+        (ops/zerocheck_dev_ext.py).  prover/unified.py starts an argument's
+        zerochecks right after its advice phase, so every build of a prove
+        runs beside the rest of the prove up to its zerochecks; ``prove``
+        takes the prover made here.  On the host it does nothing."""
+        if self.device is not None and self._device_prover is None and _width(next(iter(self.columns.values()))) >= 2:
+            from ..ops.zerocheck_dev_ext import GenericDeviceZerocheckExt
+
+            self._device_prover = GenericDeviceZerocheckExt(
+                self.F, self.columns, self.combiner, self.degree,
+                num_alphas=self.num_alphas, device=self.device,
+            )
+        return self
 
     def _combined_sum(self, at: Dict[str, object], alphas, p: int) -> Ext4:
         n = _width(at["__eq__"])
@@ -490,13 +507,9 @@ class ZerocheckExtProver:
         # and proofs.  With a device there is no width gate and no way back
         # to the host: a TraceError or a failed launch raises.
         if self.device is not None and n >= 2:
-            from ..ops.zerocheck_dev_ext import GenericDeviceZerocheckExt
-
-            return GenericDeviceZerocheckExt(
-                F, self.columns, self.combiner, self.degree,
-                num_alphas=self.num_alphas, dev_columns=self.dev_columns,
-                device=self.device,
-            ).prove(transcript)
+            dev = self.start()._device_prover
+            dev.dev_columns = self.dev_columns or {}
+            return dev.prove(transcript)
 
         # Host: the native C++ twin (ops/zerocheck_native_ext.py) when the
         # runtime built and the combiner traces (tracing happens before the
@@ -601,6 +614,14 @@ def unified_dev_columns(arg, names, rename=None, locmap=None):
         if ref is not None:
             out[name] = ref
     return out or None
+
+
+def prove_unified_zerocheck(arg, zc: "ZerocheckExtProver", transcript, rename=None) -> ZerocheckProof:
+    """Prove one of ``arg.zerochecks`` (made before the commitments) with
+    the columns that lie in the commitments' resident matrices read there
+    (``unified_dev_columns``)."""
+    zc.dev_columns = unified_dev_columns(arg, zc.columns, rename=rename)
+    return zc.prove(transcript)
 
 
 def unified_device(arg):

@@ -25,7 +25,8 @@ pipeline into the standard phased schedule so those costs are paid ONCE:
                whose weights both sides derive from rho.
 
 An Argument object implements data_phase/advice_phase/zerocheck_phase on
-the prover side and the same trio on the verifier side (replaying
+the prover side (and ``zerochecks``, the provers its zerocheck phase runs)
+and the same trio on the verifier side (replaying
 absorbs, re-deriving challenges from the proof-carried nonce, verifying
 zerochecks, and registering the SAME claims).  Cross-argument data
 (e.g. the bytecode argument referencing regcheck's committed operand
@@ -51,11 +52,14 @@ evaluation run sharded over its ranks where their size predicates hold
 (``*_commit_sharded``, ``batch_eval_sharded``, ``open_sharded`` in
 ``timings`` say what ran); the device advice twins are then off, and the
 extension zerochecks run whole on every rank (``zerochecks_sharded`` is
-False), as in the JAX package.  Inside ``zerochecks_s``, ``dag_build_s`` is
-the time the zerochecks waited on nvcc for their generated round-sum
-kernels (0 once they are built) and ``zerocheck_host_s`` their host
-tracing, lowering and generation (ops/zerocheck_dev_ext.py
-``DEVICE_PROVES``).
+False), as in the JAX package.  Each argument's zerochecks are made right
+after its advice phase (``zerochecks``, ``ZerocheckExtProver.start``): on
+a card their generated round-sum kernels start building there, and
+``zerocheck_start_s`` times that (tracing, lowering, generation, starting
+nvcc).  Inside ``zerochecks_s``, ``dag_build_s`` is the time the
+zerochecks waited on nvcc for those kernels (0 once they are built) and
+``zerocheck_host_s`` their host tracing and constant folding
+(ops/zerocheck_dev_ext.py ``DEVICE_PROVES``).
 """
 
 from __future__ import annotations
@@ -150,6 +154,7 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
     data_full: Dict[str, np.ndarray] = {}
     for a in args:
         a.locmap = getattr(a, "locmap", {})
+        a._unified_device = device
         _namespace(a, a.data_phase(transcript), "data", data_full)
 
     data_state = None
@@ -160,10 +165,19 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
 
     advice_full: Dict[str, np.ndarray] = {}
     t0 = time.perf_counter()
+    start_s = 0.0
     for a in args:
         _namespace(a, a.advice_phase(transcript), "advice", advice_full)
+        # The argument's zerochecks can be made now that its challenges are
+        # drawn: on a card each one's round-sum kernels start building
+        # (ops/dag_dev.py), beside the later advice phases and both commits.
+        t1 = time.perf_counter()
+        for zc in a.zerochecks:
+            zc.start()
+        start_s += time.perf_counter() - t1
     if timings is not None:
-        timings["advice_build_s"] = time.perf_counter() - t0
+        timings["advice_build_s"] = time.perf_counter() - t0 - start_s
+        timings["zerocheck_start_s"] = start_s
 
     # Device twins of the advice columns (ops/advice_dev.py): rebuilt on the
     # device from the resident data matrix + the host-resolved challenges, so
@@ -203,7 +217,6 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
     states = {"data": data_state, "advice": advice_state}
     for a in args:
         a._unified_states = states
-        a._unified_device = device
     for a in args:
         a.zerocheck_phase(transcript, sink)
     if timings is not None:
