@@ -173,6 +173,7 @@ def _counters_reset() -> None:
 
     keccak.LAUNCHES.update(leaves=0, merge=0)
     ligero_dev.LAUNCHES.update(columns=0, absorb=0)
+    poseidon2.LAUNCHES.update(leaves=0, merge=0, absorb=0)
     poseidon2.PERMUTATIONS["count"] = 0
     zerocheck_dev_ext.reset_counters()
     pipeline_lasso.DEVICE_ROUNDS["count"] = 0
@@ -187,7 +188,8 @@ def _counters(proof, version: int) -> dict:
     if version >= 2:
         counts.update({
             "K4": ligero_dev.LAUNCHES["columns"], "K5": ligero_dev.LAUNCHES["absorb"],
-            "p2_permutations": poseidon2.PERMUTATIONS["count"],
+            "P1": poseidon2.LAUNCHES["leaves"], "P2": poseidon2.LAUNCHES["merge"],
+            "P3": poseidon2.LAUNCHES["absorb"], "p2_permutations": poseidon2.PERMUTATIONS["count"],
             "zerochecks": count_zerocheck_proofs(proof),
             "device_zerochecks": zerocheck_dev_ext.DEVICE_PROVES["count"],
             "sweep_launches": zerocheck_dev_ext.DEVICE_PROVES["sweep_launches"],

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's v1 to v4 provers, its zerocheck kernels,
+"""Drive the PyTorch/CUDA port's v1 to v4 provers, its zerocheck and Poseidon2 kernels,
 its forest's memory plan at 2^25 steps, its base-field device zerocheck,
 its standalone modules and its sharded prover (two ranks sharing the card)
 on one NVIDIA GPU and check them.
@@ -51,14 +51,28 @@ the last line:
      times the counted instructions over 132 SMs x 64 INT32 lanes x the
      card's maximum SM clock.  No PyTorch call computes SHA3-256, so
      ``library_ms`` is null.
-     Then the device functions that are torch ops, not kernels (the JAX
-     package computes them in jnp): Poseidon2 ``p2_leaves``, ``p2_merge``
-     and the column sponge against the host core/poseidon2.py and
-     ``_hash_columns(..., "poseidon2")`` at 2^16 hashes and ragged sizes,
-     byte error 0; ``vecmat_device`` against the host ``_vecmat``; and the
-     time by CUDA events and the launches (``torch.profiler``) of each, of
-     ``encode_rows`` and of one Poseidon2 permutation at the widths of the
-     2^20 proves.  The three advice twins are held against the host
+     Then the Poseidon2 kernels (csrc/poseidon2_kernels.cu over the
+     permutation P0 of csrc/poseidon2.cuh; they replace the JAX package's
+     jitted jnp, not a Pallas kernel) against their plain versions on the
+     same card tensors, byte error 0, and against core/poseidon2.py
+     (``np_batch_leaf_hashes``, ``np_batch_merge_hashes`` and its sponge
+     steps over ``np_permute``) on every hash of the ragged sizes and a
+     sample of the large ones: P1 ``p2_leaves`` on 43 * 2^20 values (the
+     leaf level of the 2^20-step v3 forest), P2 ``p2_merge`` on 43 * 2^19
+     pairs, P3 ``p2_absorb`` of one 544-row block at n_e = 2^19 into a
+     random carried state, and P1/P2 at 1, 255 and 4097 hashes, P3 at
+     1, 255 and 4097 columns times 0, 1, 7, 8, 9, 543, 544 and 545 rows;
+     the column sponge against ``_hash_columns(..., "poseidon2")``.  Kernel
+     and plain times by CUDA events at the main shapes, the launches of one
+     call (``torch.profiler``), and the bound: permutations times the
+     integer instructions of P1's SASS (one permutation a thread) over the
+     INT32 rate, against the bytes; no PyTorch call computes Poseidon2
+     (``library_ms`` null).  P1-P3's registers and spills (ptxas) are
+     printed in phase 1.  Then the device functions that are torch ops,
+     not kernels (the JAX package computes them in jnp): ``vecmat_device``
+     against the host ``_vecmat``, and the time by CUDA events and the
+     launches (``torch.profiler``) of it and of ``encode_rows`` at the
+     widths of the 2^20 proves.  The three advice twins are held against the host
      advice columns of every v2, v3 and v4 prove below, plane by plane,
      after that prove has returned (its timings carry none of the check).
   2b. the bench's multiply-chain kernel (csrc/field_kernels.cu, the
@@ -110,10 +124,11 @@ the last line:
   8. protocol v4 (the 43 witness MLEs under the DATA commitment, no
      forest) at 2^16 and 2^20 NOP steps: pinned digest, Accept, K1 and K2
      launches 0, K5 launches > 0, the DATA commit's total_rows, n and n_e.
-  9. protocol v3 (Poseidon2 forest and column sponge, torch ops) at 2^16
-     NOP steps, for the fibonacci guest (60,013 steps) and at 2^20 NOP
-     steps: pinned digest, Accept, no SHA3 kernel launched, the Poseidon2
-     permutation calls.
+  9. protocol v3 (Poseidon2 forest and column sponge, kernels P1-P3) at
+     2^16 NOP steps, for the fibonacci guest (60,013 steps) and at 2^20 NOP
+     steps: pinned digest, Accept, no SHA3 kernel launched, no plain
+     Poseidon2 permutation; P1 once and P2 once a level of the forest, P3
+     once a 544-row stream block of each commit (9 at 2^20).
  9b. the zerocheck kernels (Z1 generated for each program around
      csrc/dag_round.cuh, Z2 in csrc/zerocheck_kernels.cu; they replace the
      JAX package's XLA-fused jit, not a Pallas kernel) against their plain
@@ -137,7 +152,8 @@ the last line:
      for the fibonacci guest (900,013 steps) and v3 at 2^16 NOP steps
      (Poseidon2 forest) equal their pinned digests and verify Accept; K1
      runs once per group and once per freed level of the openings, K2 once
-     per level per group and k times for the freed level k.
+     per level per group and k times for the freed level k (P1 and P2
+     alike for v3).
  11. the size the forest cannot hold whole: Prover(BabyBear).prove at 2^25
      NOP steps with the thresholds as shipped (the plan frees levels 0..2
      and builds in groups of 16 trees on its own; all levels would be
@@ -208,7 +224,11 @@ entry carries the launches per rank of phase 15's two proves
 (``launches_group_v1_2_22``, ``launches_group_v2_2_20``).  The multiply-chain kernel's entry takes its
 launches from the bench run of phase 2b.  Z1's and Z2's entries take their
 launches from the 2^20 v2 prove of phase 6 (v3, v4 at 2^20 and v2 at 2^16
-beside them) and their measurements from phase 9b.  The last three lines are the
+beside them) and their measurements from phase 9b.  P1-P3 take their
+launches from the 2^20 v3 prove of phase 9 (v3 2^16, the fibonacci guest and
+phase 10's forced plan beside them) and their measurements from phase 2; P0,
+the permutation inlined in all three, is listed with P1's measurements and
+the three's launches.  The last three lines are the
 kernel JSON line, the card's nvidia-smi line and the result line
 {"ok": true, "device": {...}}.
 """
@@ -471,6 +491,183 @@ def zerocheck_kernel_phase(specs, dev, max_sm_mhz: float, mul_instr: float, add_
     return {"z1": z1, "z2": z2, "z1_programs": every}
 
 
+def poseidon2_ptxas(build_log: str) -> dict:
+    """ptxas's registers, stack frame and spills of P1-P3 (``-Xptxas -v`` in
+    the kernels' build log; empty where the library was reused)."""
+    from zigz_tpu_torch.ops import _build
+
+    report = {}
+    for name in ("p2_leaves_kernel", "p2_merge_kernel", "p2_absorb_kernel"):
+        part = next((part for part in build_log.split("Compiling entry function")[1:]
+                     if name in part.splitlines()[0]), "")
+        report[name] = _build.ptxas_report(part)
+    return report
+
+
+def poseidon2_sass_instructions(sass: str) -> tuple:
+    """(integer ALU instructions, all instructions, opcode counts) of P1 in
+    ``cuobjdump -sass`` output: one Poseidon2 permutation (P0, inlined) and
+    a leaf's framing a thread."""
+    part = next(part for part in sass.split("Function :")[1:] if "p2_leaves_kernel" in part.splitlines()[0])
+    opcodes = re.findall(SASS_OPCODE, part, flags=re.M)
+    instr = sum(1 for op in opcodes if op in INT_OPCODES)
+    if not 3000 < instr < 40000:
+        raise AssertionError(f"implausible instruction count {instr} for a Poseidon2 permutation in P1's SASS "
+                             f"({len(opcodes)} in all)")
+    return instr, len(opcodes), {op: opcodes.count(op) for op in sorted(set(opcodes))}
+
+
+def poseidon2_kernel_phase(dev, max_sm_mhz: float, p2_instr: int, n_leaves: int = 43 << 20,
+                           n_e: int = 1 << 19) -> dict:
+    """Phase 2's Poseidon2 part: P1 (``p2_leaves``), P2 (``p2_merge``) and P3
+    (``p2_absorb``) against their plain versions on the same card tensors
+    (byte error 0) and against core/poseidon2.py, at the main path's shapes
+    (the leaf level of the 2^20-step v3 forest, its first merge, one
+    544-row stream block at n_e = 2^19 from a random carried state) and at
+    the ragged sizes; the column sponge against ``_hash_columns``.  Returns
+    the three kernels' entries: byte error, kernel and plain ms by CUDA
+    events at the main shapes, the launches of one call (the profiler), and
+    the bound, the larger of the bytes over 3.35 TB/s and the permutations
+    times ``p2_instr`` (P1's SASS) over the INT32 rate at ``max_sm_mhz``."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zigz_tpu_torch.commitments import ligero
+    from zigz_tpu_torch.core import poseidon2 as p2_host
+    from zigz_tpu_torch.ops import poseidon2
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def byte_err(a, b) -> int:
+        return int((a.view(torch.uint8).to(torch.int16) - b.view(torch.uint8).to(torch.int16)).abs().max())
+
+    def event_ms(fn, x, reps) -> float:
+        fn(x)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn(x)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def launches_of(fn, x) -> int:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(x)
+            torch.cuda.synchronize()
+        return sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+
+    def bound(perms, nbytes):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = perms * p2_instr / (INT32_LANES * max_sm_mhz * 1e6) * 1e3
+        return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    library_ms=None)
+
+    def canonical(shape):
+        """Random canonical int32, its first two values 0 and p - 1."""
+        t = torch.randint(0, P, shape, device=dev, dtype=torch.int32, generator=gen)
+        edge = torch.tensor([0, P - 1], device=dev, dtype=torch.int32)[: min(2, t.numel())]
+        t.view(-1)[: edge.numel()] = edge
+        return t
+
+    def host_u64(t):
+        return t.cpu().numpy().astype("uint64")
+
+    def np_absorb(state, msg):
+        """core/poseidon2.py's sponge steps over carried states, in numpy."""
+        s = host_u64(state)
+        msg = host_u64(msg)
+        for off in range(0, max(msg.shape[0], 1), p2_host.RATE):
+            block = msg[off : off + p2_host.RATE]
+            s[: block.shape[0]] = (s[: block.shape[0]] + block) % np.uint64(P)
+            s = p2_host.np_permute(s)
+        return s
+
+    def pairs_of(parents):
+        """Child indices 2i, 2i + 1 of each parent i, in order."""
+        return torch.stack([2 * parents, 2 * parents + 1], dim=1).reshape(-1)
+
+    def check_p2(tag, leaves_in=None, level=None, state=None, msg=None):
+        """Each given kernel call against its plain version on the same card
+        tensors (byte error) and against core/poseidon2.py (raises)."""
+        errs = []
+        if leaves_in is not None:
+            got = poseidon2.p2_leaves(leaves_in)
+            errs.append(("P1", byte_err(got, poseidon2._p2_leaves_plain(leaves_in))))
+            idx = torch.arange(leaves_in.numel(), device=dev) if leaves_in.numel() <= 4097 else torch.cat(
+                [torch.arange(4097, device=dev), torch.randint(0, leaves_in.numel(), (64,), generator=gen, device=dev)])
+            if poseidon2.limbs_to_bytes(got[:, idx]) != p2_host.np_batch_leaf_hashes(host_u64(leaves_in[idx])):
+                raise AssertionError(f"P1 {tag}: digests differ from core/poseidon2.py")
+        if level is not None:
+            got = poseidon2.p2_merge(level)
+            errs.append(("P2", byte_err(got, poseidon2._p2_merge_plain(level))))
+            parents = got.shape[1]
+            idx = torch.arange(parents, device=dev) if parents <= 4097 else torch.cat(
+                [torch.arange(4097, device=dev), torch.randint(0, parents, (64,), generator=gen, device=dev)])
+            children = poseidon2.limbs_to_bytes(level[:, pairs_of(idx)])
+            if poseidon2.limbs_to_bytes(got[:, idx]) != p2_host.np_batch_merge_hashes(children):
+                raise AssertionError(f"P2 {tag}: digests differ from core/poseidon2.py")
+        if state is not None:
+            got = poseidon2.p2_absorb(state.clone(), msg)
+            errs.append(("P3", byte_err(got, poseidon2._p2_absorb_plain(state.clone(), msg))))
+            n = state.shape[1]
+            cols = torch.arange(n, device=dev) if n <= 4097 else torch.cat(
+                [torch.tensor([0, 1, n - 1], device=dev), torch.randint(0, n, (8,), generator=gen, device=dev)])
+            if not (host_u64(got[:, cols]) == np_absorb(state[:, cols], msg[:, cols])).all():
+                raise AssertionError(f"P3 {tag}: the state differs from core/poseidon2.py's sponge steps")
+        return errs
+
+    # The main path's shapes: the leaf level of the 2^20-step v3 forest, its
+    # first merge, one 544-row stream block at n_e = 2^19 from a random
+    # carried state; then the ragged sizes.
+    p2_vals = canonical((n_leaves,))
+    p2_level = canonical((8, n_leaves))
+    p2_state = canonical((16, n_e))
+    p2_block = canonical((544, n_e))
+    p2_errs = check_p2("main shapes", p2_vals, p2_level, p2_state, p2_block)
+    for n in (1, 255, 4097):
+        p2_errs += check_p2(f"n={n}", canonical((n,)), canonical((8, 2 * n)))
+        for rows in (0, 1, 7, 8, 9, 543, 544, 545):
+            p2_errs += check_p2(f"({rows}, {n})", state=canonical((16, n)), msg=canonical((rows, n)))
+    p2_err = {k: max(e for name, e in p2_errs if name == k) for k in ("P1", "P2", "P3")}
+    if any(p2_err.values()):
+        raise AssertionError(f"the Poseidon2 kernels disagree with their plain versions: byte errors {p2_err}")
+    for r, n in ((1, 1), (13, 256), (545, 128), (1100, 8)):
+        mat = canonical((r, n))
+        want = ligero._hash_columns(ligero.ntt_pow2_u32(host_u64(mat), 8 * n), "poseidon2")
+        if poseidon2.limbs_to_bytes(poseidon2.p2_columns_stream(mat, 8 * n)) != want:
+            raise AssertionError(f"the Poseidon2 column sponge differs from _hash_columns at ({r}, {n})")
+    log("phase 2 Poseidon2: P1, P2, P3 == their plain versions (max byte err "
+        f"{p2_err}) and == core/poseidon2.py at the main shapes and at 1, 255, 4097 hashes and columns x 0, 1, 7, 8, "
+        "9, 543, 544, 545 rows; the column sponge (P3) == _hash_columns(poseidon2) at (1, 1), (13, 256), "
+        "(545, 128), (1100, 8) rows x columns")
+
+    results = {}
+    p2_scratch = p2_state.clone()
+    for key, tag, shape, fn, plain, x, perms, nbytes in (
+            ("p2_leaves", "P1", f"({n_leaves},) -> (8, {n_leaves}) [2^20-step v3 forest leaves]",
+             poseidon2.p2_leaves, poseidon2._p2_leaves_plain, p2_vals, n_leaves, n_leaves * (4 + 32)),
+            ("p2_merge", "P2", f"(8, {n_leaves}) -> (8, {n_leaves // 2}) [its first merge level]",
+             poseidon2.p2_merge, poseidon2._p2_merge_plain, p2_level, n_leaves, n_leaves // 2 * (64 + 32)),
+            ("p2_absorb", "P3", f"state (16, {n_e}) + (544, {n_e}) rows, 68 permutations a column",
+             lambda s: poseidon2.p2_absorb(s, p2_block), lambda s: poseidon2._p2_absorb_plain(s, p2_block),
+             p2_scratch, 68 * n_e, n_e * (2 * 16 * 4 + 544 * 4))):
+        results[key] = dict(max_abs_err=p2_err[tag], shape=shape, ms=event_ms(fn, x, 10),
+                            plain_ms=event_ms(plain, x, 1), launches_a_call=launches_of(fn, x),
+                            **bound(perms, nbytes))
+        r = results[key]
+        log(f"phase 2 {key} ({tag}): {shape}: kernel {r['ms']} ms ({r['launches_a_call']} launch a call), plain "
+            f"{r['plain_ms']} ms, bound {r['bound_ms']} ms by {r['bound_by']} ({perms} permutations x {p2_instr} "
+            f"integer instructions)")
+    del p2_vals, p2_level, p2_state, p2_block, p2_scratch
+    torch.cuda.empty_cache()
+    return results
+
+
+
 def build_report(build) -> dict:
     """A generated kernel's build: nvcc seconds in this process (0 when the
     library was reused), registers and spill bytes a thread (ptxas)."""
@@ -716,6 +913,16 @@ def main() -> int:
     log(f"phase 1 sass: field_mul_chain has {len(chain_opcodes)} instructions, {chain_instr} of them integer ALU "
         f"({ {op: chain_opcodes.count(op) for op in sorted(set(chain_opcodes))} })")
 
+    # Poseidon2's: every integer instruction of P1, whose thread is one
+    # permutation (P0, inlined) and a leaf's framing, for P1-P3's bounds.
+    p2_instr, p2_all, p2_ops = poseidon2_sass_instructions(sass)
+    log(f"phase 1 sass: p2_leaves_kernel (P1, one permutation a thread) has {p2_all} instructions, "
+        f"{p2_instr} of them integer ALU ({p2_ops})")
+    p2_ptxas = poseidon2_ptxas(kernels.log)
+    for name, report in p2_ptxas.items():
+        log(f"phase 1 ptxas {name}: {report['registers']} registers, stack frame {report['stack_frame_B']} B, "
+            f"spill stores {report['spill_stores_B']} B, spill loads {report['spill_loads_B']} B")
+
     def bound(units: int, nbytes: int, instr_each: int = perm_instr) -> dict:
         """The least time the card could take: bytes over the memory rate, or
         units (permutations by default) x their integer instructions over the
@@ -861,61 +1068,37 @@ def main() -> int:
         log(f"phase 2 {name}: kernel == plain == hashlib (max byte err {r['max_abs_err']}); "
             f"{r['shape']}: kernel {r['ms']} ms, plain {r['plain_ms']} ms, "
             f"bound {r['bound_ms']} ms by {r['bound_by']}")
-    # The device functions that are torch ops: against their host twins,
-    # then ms by CUDA events and launches by the profiler.
-    def launches_of(fn, x) -> int:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn(x)
-            torch.cuda.synchronize()
-        return sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    # -- phase 2, Poseidon2: P1-P3 against their plain versions -------------
+    results.update(poseidon2_kernel_phase(dev, max_sm_mhz, p2_instr))
 
     def canonical(shape):
+        """Random canonical int32."""
         return torch.randint(0, P, shape, device=dev, dtype=torch.int32, generator=gen)
 
     def host_u64(t):
         return t.cpu().numpy().astype("uint64")
 
-    for n in (1, 255, 4097, 1 << 16):
-        vals = canonical((n,))
-        vals[:2] = torch.tensor([0, P - 1], device=dev, dtype=torch.int32)[:n]
-        leaf_limbs = poseidon2.p2_leaves(vals)
-        if poseidon2.limbs_to_bytes(leaf_limbs) != p2_host.np_batch_leaf_hashes(host_u64(vals)):
-            raise AssertionError(f"p2_leaves differs from core/poseidon2.py at n={n}")
-        level = canonical((8, 2 * n))
-        if poseidon2.limbs_to_bytes(poseidon2.p2_merge(level)) != p2_host.np_batch_merge_hashes(
-                poseidon2.limbs_to_bytes(level)):
-            raise AssertionError(f"p2_merge differs from core/poseidon2.py at n={n}")
-    for r, n in ((1, 1), (13, 256), (545, 128), (1100, 8)):
-        mat = canonical((r, n))
-        want = ligero._hash_columns(ligero.ntt_pow2_u32(host_u64(mat), 8 * n), "poseidon2")
-        if poseidon2.limbs_to_bytes(poseidon2.p2_columns_stream(mat, 8 * n)) != want:
-            raise AssertionError(f"the Poseidon2 column sponge differs from _hash_columns at ({r}, {n})")
+    def launches_of(fn, x) -> int:
+        """CUDA kernels that one call of fn(x) launches (the profiler)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(x)
+            torch.cuda.synchronize()
+        return sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+
+    # The device functions that are torch ops: ms by CUDA events and
+    # launches by the profiler, at the widths of the 2^20 proves.
     weights = host_u64(canonical((688,)))
     wide = words(688, 1 << 16)
     if not (ligero_dev.vecmat_device(weights, wide) == ligero._vecmat(weights, host_u64(wide))).all():
         raise AssertionError("vecmat_device differs from the host _vecmat")
-    log("phase 2 torch ops: p2_leaves, p2_merge == core/poseidon2.py at 1, 255, 4097, 65536 hashes; column sponge == "
-        "_hash_columns(poseidon2) at (1, 1), (13, 256), (545, 128), (1100, 8) rows x columns; vecmat_device == _vecmat: byte err 0")
-
     coeffs = words(544, 1 << 16)
-    enc_block = ntt_dev.encode_rows(coeffs, n_e)
-    leaf_vals = canonical((43 << 16,))
-    leaf_level = canonical((8, 43 << 16))
-    state_forest = canonical((16, poseidon2.CHUNK)).to(torch.int64)
-    state_sponge = canonical((16, n_e)).to(torch.int64)
     torch_ops = {}
     for name, fn, x, reps in (
             (f"encode_rows (544, 65536) -> (544, {n_e})", lambda m: ntt_dev.encode_rows(m, n_e), coeffs, 5),
-            (f"permute_device (16, {poseidon2.CHUNK}) [forest chunk]", poseidon2.permute_device, state_forest, 3),
-            (f"permute_device (16, {n_e}) [column sponge]", poseidon2.permute_device, state_sponge, 5),
-            (f"p2_leaves ({43 << 16},) [2^16-step forest]", poseidon2.p2_leaves, leaf_vals, 3),
-            (f"p2_merge (8, {43 << 16})", poseidon2.p2_merge, leaf_level, 3),
-            (f"p2_absorb one 544-row block at n_e = {n_e} (68 permutations)",
-             lambda m: poseidon2.p2_absorb(state_sponge.clone(), m), enc_block, 1),
             ("vecmat_device (688,) x (688, 65536)", lambda m: ligero_dev.vecmat_device(weights, m), wide, 5)):
         torch_ops[name] = dict(ms=event_ms(fn, x, reps), launches=launches_of(fn, x))
         log(f"phase 2 torch op {name}: {torch_ops[name]['ms']} ms, {torch_ops[name]['launches']} launches")
-    del coeffs, enc_block, leaf_vals, leaf_level, state_forest, state_sponge, wide
+    del coeffs, wide
     torch.cuda.empty_cache()
 
     # -- phase 2b: the bench's multiply-chain kernel, then the bench --------
@@ -1114,6 +1297,7 @@ def main() -> int:
     def port_prove_v2(program, entry, segments, tape, max_steps, version=2):
         keccak.LAUNCHES.update(leaves=0, merge=0)
         ligero_dev.LAUNCHES.update(columns=0, absorb=0)
+        poseidon2.LAUNCHES.update(leaves=0, merge=0, absorb=0)
         poseidon2.PERMUTATIONS["count"] = 0
         ligero.STITCHED.update(dev_columns=0, host_rows=0)
         zerocheck_dev_ext.reset_counters()
@@ -1129,14 +1313,25 @@ def main() -> int:
             raise AssertionError(f"Prover's default device is {prover.device}, not the card")
         proof = prover.prove(program, entry, None, max_steps, segments, tape)
         peak = torch.cuda.max_memory_allocated(dev)  # before the checks below allocate
-        counts = {**keccak.LAUNCHES, **ligero_dev.LAUNCHES, "p2_permutations": poseidon2.PERMUTATIONS["count"],
-                  **dag_dev.LAUNCHES, **ext4_dev.LAUNCHES}
+        counts = {**keccak.LAUNCHES, **ligero_dev.LAUNCHES, "P1": poseidon2.LAUNCHES["leaves"],
+                  "P2": poseidon2.LAUNCHES["merge"], "P3": poseidon2.LAUNCHES["absorb"],
+                  "p2_permutations": poseidon2.PERMUTATIONS["count"], **dag_dev.LAUNCHES, **ext4_dev.LAUNCHES}
         if counts["columns"]:
             raise AssertionError(f"K4 is on no prove, yet the v{version} prove launched it: {counts}")
-        # v2: SHA3 forest and sponge; v4: no forest; v3: Poseidon2 throughout.
-        want = {2: (True, True, True, False), 3: (False, False, False, True), 4: (False, False, True, False)}[version]
-        if tuple(bool(counts[k]) for k in ("leaves", "merge", "absorb", "p2_permutations")) != want:
+        # v2: SHA3 forest and sponge (K1, K2, K5); v4: no forest (K5); v3:
+        # Poseidon2 throughout (P1, P2, P3).  No prove on the card runs the
+        # plain Poseidon2 permutation.
+        want = {2: (True, True, True, False, False, False), 3: (False, False, False, True, True, True),
+                4: (False, False, True, False, False, False)}[version]
+        if (tuple(bool(counts[k]) for k in ("leaves", "merge", "absorb", "P1", "P2", "P3")) != want
+                or counts["p2_permutations"]):
             raise AssertionError(f"the v{version} prove's launches are not those of its path: {counts}")
+        if version == 3:
+            # P3 once a 544-row stream block of each commit
+            blocks = sum(-(-prover.last_timings[f"{c}_commit_shape"][0] // 544) for c in ("data", "advice"))
+            if counts["P3"] != blocks:
+                raise AssertionError(f"v3: {counts['P3']} launches of P3, not one for each of the commits' "
+                                     f"{blocks} stream blocks")
         device_work = {"zerochecks": count_zerocheck_proofs(proof),
                        "device_zerochecks": zerocheck_dev_ext.DEVICE_PROVES["count"],
                        "sweep_launches": zerocheck_dev_ext.DEVICE_PROVES["sweep_launches"],
@@ -1179,6 +1374,7 @@ def main() -> int:
                "lasso_s", "witness_dev_s",
                "forest_s", "evals_s", "opens_s", "commitments_s")
     launches_at_2_20 = {}
+    v3_launches = {}
     for phase, version, names in ((6, 2, ("v2-nop-2^16", "v2-fibonacci-10000", "v2-nop-2^20")),
                                   (8, 4, ("v4-nop-2^16", "v4-nop-2^20")),
                                   (9, 3, ("v3-nop-2^16", "v3-fibonacci-10000", "v3-nop-2^20"))):
@@ -1195,6 +1391,12 @@ def main() -> int:
                 launches_at_2_16 = counts
             t = prover.last_timings
             check_pinned(name, case, data, t["num_steps"])
+            if version == 3:  # the forest: P1 once, P2 once a level (nothing freed, one group)
+                v3_launches[name] = counts
+                v = (t["num_steps"] - 1).bit_length()
+                if t["forest_plan"]["groups"] != 1 or (counts["P1"], counts["P2"]) != (1, v):
+                    raise AssertionError(f"{name}: the forest's launches {counts} under {t['forest_plan']} are "
+                                         f"not P1 once and P2 {v} times")
             log(f"phase {phase} {name}: steps {t['num_steps']}, {len(data)} B, sha256 {sha(data)[:16]} == pinned, Accept, "
                 f"commit paths {t['data_commit_path']}/{t['advice_commit_path']}, launches {counts}, "
                 f"DATA commit (total_rows, n, n_e) {t['data_commit_shape']}, ADVICE {t['advice_commit_shape']}")
@@ -1277,6 +1479,9 @@ def main() -> int:
                     raise AssertionError(f"{name}: launches {counts} are not those of 3 groups and 3 freed levels")
             else:
                 data, prover, counts, _peak, _work = port_prove_v2(program, entry, segments, tape, max_steps, version)
+                if (counts["P1"], counts["P2"]) != (3 + 3, 3 * v + 3):
+                    raise AssertionError(f"{name}: launches {counts} are not those of 3 groups and 3 freed levels")
+                forced_v3_counts = counts
         t = prover.last_timings
         check_pinned(name, case, data, t["num_steps"])
         plan = t["forest_plan"]
@@ -1515,6 +1720,33 @@ def main() -> int:
                          every_program_of_v2_2_20=[{**{k: e[k] for k in shape_keys}, "build": e["build"]}
                                                    for e in results["z1_programs"]])
         kernels_line["kernels"].append(entry)
+    # Poseidon2 (P1-P3; P0 inlined): they replace jitted jnp and the port's
+    # torch ops, not a Pallas kernel.  Launches from the v3 2^20 prove (the
+    # main path), v3 at 2^16, the fibonacci guest and under phase 10's forced
+    # plan beside them.
+    p2_source = "zigz_tpu_torch/csrc/poseidon2_kernels.cu"
+    measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "launches_a_call")
+    for key, tag, name, replaces in (
+            ("p2_leaves", "P1", "p2_leaves (P1)", "zigz_tpu/ops/poseidon2.py:130 _p2_leaves_jit"),
+            ("p2_merge", "P2", "p2_merge (P2)", "zigz_tpu/ops/poseidon2.py:141 _p2_merge_jit"),
+            ("p2_absorb", "P3", "p2_absorb (P3)",
+             "zigz_tpu/commitments/ligero.py:386-392 (host C++ zigz_p2_matrix_columns; no device counterpart in "
+             "zigz_tpu) and the port's torch-op p2_absorb")):
+        kernels_line["kernels"].append({
+            "name": name, "route": "cuda", "source": p2_source, "replaces": replaces, "tpu_kernel": None,
+            "launches": launches_at_2_20[3][tag], **{k: results[key][k] for k in measured},
+            "launches_v3_2_16": v3_launches["v3-nop-2^16"][tag],
+            "launches_v3_fibonacci": v3_launches["v3-fibonacci-10000"][tag],
+            "launches_v3_2_16_forced_plan": forced_v3_counts[tag], "ptxas": p2_ptxas[f"{key}_kernel"]})
+    # P0, the permutation, is a device function inlined in the three and has
+    # no launch of its own: P1 is one permutation a thread, so its entry
+    # carries P1's measurements and the sum of the three's launches.
+    kernels_line["kernels"].append({
+        "name": "zigz_p2_permute (P0)", "route": "cuda", "source": "zigz_tpu_torch/csrc/poseidon2.cuh",
+        "replaces": "zigz_tpu/ops/poseidon2.py:116 permute_device", "tpu_kernel": None,
+        "launches": sum(launches_at_2_20[3][tag] for tag in ("P1", "P2", "P3")),
+        **{k: results["p2_leaves"][k] for k in measured}, "inlined_in": ["P1", "P2", "P3"],
+        "measured_as": "P1: one permutation per thread", "integer_instructions": p2_instr})
     log(json.dumps({"torch_ops": torch_ops}))
     log(json.dumps(kernels_line))
     log(info["nvidia_smi"])

@@ -10,9 +10,11 @@ current directory, so the same script times two checkouts in turns
 first.  ``--host-tail N`` sets the width at which the extension zerochecks
 finish on the host (``zerocheck_dev_ext.HOST_TAIL_EXT``); each line carries
 their counters (``DEVICE_PROVES``: zerochecks and the zerocheck kernels'
-launches).  Needs a CUDA device."""
+launches), the Poseidon2 kernels' launches and plain permutations, and the
+proof's sha256.  Needs a CUDA device."""
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -35,7 +37,7 @@ def main() -> int:
     sys.path.insert(0, os.getcwd())
     import zigz_tpu_torch as zt
     from zigz_tpu_torch.device import card_info
-    from zigz_tpu_torch.ops import zerocheck_dev_ext
+    from zigz_tpu_torch.ops import poseidon2, zerocheck_dev_ext
     from zigz_tpu_torch.verifier.benchmarks import nop_program, timed_prove
 
     print(card_info()["nvidia_smi"], flush=True)
@@ -44,15 +46,20 @@ def main() -> int:
     program = nop_program(1 << args.log2_steps)
     for _ in range(args.repeat):
         zerocheck_dev_ext.reset_counters()
+        poseidon2.LAUNCHES.update(leaves=0, merge=0, absorb=0)
+        poseidon2.PERMUTATIONS["count"] = 0
         prover = zt.Prover(zt.BabyBear, seed=0, device="cuda", protocol_version=args.version)
         proof, wall, peaks = timed_prove(prover, program, 2 << args.log2_steps)
         timings = {k: v for k, v in prover.last_timings.items() if isinstance(v, (int, float, str))}
+        data = zt.serialization.BinarySerializer(zt.BabyBear).serialize(proof)
         print(json.dumps({"tree": os.getcwd(), "version": args.version, "wall_s": wall,
                           "peak_device_memory_B": peaks["max_memory_allocated_B"],
                           "peak_device_reserved_B": peaks["max_memory_reserved_B"],
                           "host_tail": zerocheck_dev_ext.HOST_TAIL_EXT,
                           "zerocheck_device": dict(zerocheck_dev_ext.DEVICE_PROVES),
-                          "proof_bytes": len(zt.serialization.BinarySerializer(zt.BabyBear).serialize(proof)),
+                          "p2_launches": dict(poseidon2.LAUNCHES),
+                          "p2_permutations": poseidon2.PERMUTATIONS["count"],
+                          "proof_bytes": len(data), "sha256": hashlib.sha256(data).hexdigest(),
                           **timings}), flush=True)
     return 0
 

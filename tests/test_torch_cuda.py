@@ -342,6 +342,32 @@ def test_poseidon2_column_sponge_on_the_card_matches_hash_columns(cuda, rows):
     assert poseidon2.limbs_to_bytes(got) == want
 
 
+@pytest.mark.parametrize("n", [1, 2, 37, 255, 4097])
+def test_poseidon2_kernels_match_their_plain_versions(cuda, n):
+    """P1, P2 and P3 (and the bare permutation, P3 with no rows) against
+    their plain versions on the same values, one launch a call."""
+    rng = np.random.default_rng(100 + n)
+
+    def canonical(shape):
+        vals = rng.integers(0, P, size=shape, dtype=np.uint64)
+        vals.reshape(-1)[:2] = [0, P - 1][: vals.size]
+        return torch.from_numpy(vals.astype(np.int32))
+
+    values, level, state = canonical(n), canonical((8, 2 * n)), canonical((16, n))
+    before = dict(poseidon2.LAUNCHES)
+    assert torch.equal(poseidon2.p2_leaves(values.to(cuda)).cpu(), poseidon2._p2_leaves_plain(values))
+    assert torch.equal(poseidon2.p2_merge(level.to(cuda)).cpu(), poseidon2._p2_merge_plain(level))
+    wide = state.to(torch.int64)
+    assert torch.equal(poseidon2.permute_device(wide.to(cuda)).cpu(), poseidon2._permute_plain(wide))
+    for rows in (0, 1, 7, 8, 9, 545):
+        msg = canonical((rows, n))
+        got = poseidon2.p2_absorb(state.clone().to(cuda), msg.to(cuda))
+        assert torch.equal(got.cpu(), poseidon2._p2_absorb_plain(state.clone(), msg))
+    torch.cuda.synchronize()
+    assert poseidon2.LAUNCHES == {"leaves": before["leaves"] + 1, "merge": before["merge"] + 1,
+                                  "absorb": before["absorb"] + 7}
+
+
 @pytest.mark.parametrize("hash_mode", ["sha3", "poseidon2"])
 def test_stitched_commit_on_the_card_matches_the_cpu(cuda, hash_mode):
     """Device-built columns placed into the device matrix, the rest uploaded."""
@@ -368,6 +394,7 @@ def test_v3_v4_prove_on_the_card_matches_zigz_tpu(cuda, name):
     ser = serialization.BinarySerializer(BabyBear)
     keccak.LAUNCHES.update(leaves=0, merge=0)
     ligero_dev.LAUNCHES.update(columns=0, absorb=0)
+    poseidon2.LAUNCHES.update(leaves=0, merge=0, absorb=0)
     poseidon2.PERMUTATIONS["count"] = 0
     prover = Prover(BabyBear, seed=0, protocol_version=case["protocol_version"])  # the default device
     assert prover.device.type == "cuda"
@@ -379,10 +406,11 @@ def test_v3_v4_prove_on_the_card_matches_zigz_tpu(cuda, name):
     assert prover.last_timings["advice_dev_cols"] == 148
     assert prover.last_timings["data_commit_path"] == prover.last_timings["advice_commit_path"] == "stream-dev"
     assert keccak.LAUNCHES == {"leaves": 0, "merge": 0}
+    assert poseidon2.PERMUTATIONS["count"] == 0  # no plain permutation on the card
     if case["protocol_version"] == 3:
-        assert ligero_dev.LAUNCHES["absorb"] == 0 and poseidon2.PERMUTATIONS["count"] > 0
+        assert ligero_dev.LAUNCHES["absorb"] == 0 and all(poseidon2.LAUNCHES.values())
     else:
-        assert ligero_dev.LAUNCHES["absorb"] > 0 and poseidon2.PERMUTATIONS["count"] == 0
+        assert ligero_dev.LAUNCHES["absorb"] > 0 and not any(poseidon2.LAUNCHES.values())
         assert proof.witness_commitments == []
 
 

@@ -13,6 +13,9 @@
 * The zerocheck and Lasso dispatch with a device never goes back to the
   host provers: an absent CUDA device raises, a combiner outside the traced
   algebra raises ``TraceError``, and there is no width gate.
+* The Poseidon2 wrappers (P1-P3: ``p2_leaves``, ``p2_merge``,
+  ``p2_absorb``; ``permute_device``) on a CUDA tensor build the kernels or
+  raise: no nvcc, a failing nvcc, a library that does not load.
 * A device advice twin or the Poseidon2 column sponge that fails makes
   the commit and the prove raise; both commits of a v2, v3 and v4 prove take
   the ``"stream-dev"`` path.
@@ -127,9 +130,9 @@ def test_build_raises_when_the_library_does_not_load(fresh_build, monkeypatch):
 
 def test_build_hashes_the_sources():
     units, headers = _build._sources()
-    assert [p.name for p in units] == ["field_kernels.cu", "ligero_kernels.cu", "sha3_kernels.cu",
-                                       "zerocheck_kernels.cu"]
-    assert [p.name for p in headers] == ["babybear.cuh", "dag_round.cuh", "keccak.cuh"]
+    assert [p.name for p in units] == ["field_kernels.cu", "ligero_kernels.cu", "poseidon2_kernels.cu",
+                                       "sha3_kernels.cu", "zerocheck_kernels.cu"]
+    assert [p.name for p in headers] == ["babybear.cuh", "dag_round.cuh", "keccak.cuh", "poseidon2.cuh"]
     path = _build._library_path(units, headers)
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
@@ -176,6 +179,52 @@ def test_zerocheck_kernel_wrappers_on_cuda_build_the_kernels_or_raise(entry, fre
         else:
             ext4_dev.fold_planes(planes, [1, 2, 3, 4], ext4_dev.FoldGroups([(1, 0, 1, 2, 3)]))
     assert (dict(dag_dev.LAUNCHES), dict(ext4_dev.LAUNCHES)) == before
+
+
+_UNBUILDABLE = {
+    "no nvcc": (None, "nvcc not found"),
+    "failing nvcc": ('echo "poseidon2_kernels.cu(1): error: no such thing" >&2\nexit 2\n', "no such thing"),
+    "unloadable library": ('while [ "$1" != "-o" ]; do shift; done\necho garbage > "$2"\nexit 0\n', "could not load"),
+}
+
+
+@pytest.mark.parametrize("library", sorted(_UNBUILDABLE))
+@pytest.mark.parametrize("entry", ["p2_leaves", "p2_merge", "p2_absorb"])
+def test_poseidon2_wrappers_on_cuda_build_the_kernels_or_raise(entry, library, fresh_build, monkeypatch):
+    """P1-P3's wrappers on a CUDA tensor raise where the library cannot be
+    built or loaded; they never hash with the plain versions there, and
+    count no launch and no plain permutation."""
+    from zigz_tpu_torch.ops import poseidon2
+
+    body, match = _UNBUILDABLE[library]
+    nvcc = None if body is None else _fake_nvcc(fresh_build, body)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: nvcc)
+    before = dict(poseidon2.LAUNCHES), dict(poseidon2.PERMUTATIONS)
+    with pytest.raises(_build.KernelBuildError, match=match):
+        if entry == "p2_leaves":
+            poseidon2.p2_leaves(torch.zeros(4, dtype=torch.int32).as_subclass(_OnCuda))
+        elif entry == "p2_merge":
+            poseidon2.p2_merge(torch.zeros((8, 4), dtype=torch.int32).as_subclass(_OnCuda))
+        else:
+            state = torch.zeros((16, 4), dtype=torch.int32).as_subclass(_OnCuda)
+            poseidon2.p2_absorb(state, torch.zeros((8, 4), dtype=torch.int32).as_subclass(_OnCuda))
+    assert (dict(poseidon2.LAUNCHES), dict(poseidon2.PERMUTATIONS)) == before
+
+
+def test_poseidon2_permutation_and_sponge_on_cuda_reach_the_kernel(fresh_build, monkeypatch):
+    """``permute_device`` and the column sponge on a CUDA tensor go through
+    P3 (the bare permutation is P3 with no rows), so they raise where the
+    kernels do not build."""
+    from zigz_tpu_torch.ops import poseidon2
+
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    before = dict(poseidon2.PERMUTATIONS)
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        poseidon2.permute_device(torch.zeros((16, 4), dtype=torch.int64).as_subclass(_OnCuda))
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        poseidon2.p2_absorb(torch.zeros((16, 4), dtype=torch.int32).as_subclass(_OnCuda),
+                            torch.zeros((0, 4), dtype=torch.int32).as_subclass(_OnCuda))
+    assert dict(poseidon2.PERMUTATIONS) == before
 
 
 def _tiny_program():

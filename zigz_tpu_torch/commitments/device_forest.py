@@ -119,7 +119,7 @@ class _Sha3Levels:
 
 
 class _Poseidon2Levels:
-    """A level of G trees is an (8, G, n) int32 tensor of limbs; torch ops."""
+    """A level of G trees is an (8, G, n) int32 tensor of limbs; kernels P1 and P2."""
 
     tree_dim, node_dim, words, word_type = 1, 2, 8, "<u4"
 

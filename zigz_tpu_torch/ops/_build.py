@@ -78,6 +78,9 @@ _SYMBOLS = {
     "zigz_sha3_absorb": ([_PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _PTR], _INT),
     "zigz_field_mul_chain": ([_PTR, _PTR, _I64, _PTR, _PTR], _INT),
     "zigz_ext_fold": ([_PTR, _I64, _PTR, _INT, _PTR, _PTR, _PTR], _INT),
+    "zigz_p2_leaves": ([_PTR, _PTR, _I64, _PTR, _PTR], _INT),
+    "zigz_p2_merge": ([_PTR, _PTR, _I64, _PTR, _PTR], _INT),
+    "zigz_p2_absorb": ([_PTR, _PTR, _I64, _I64, _PTR, _PTR], _INT),
     "zigz_cuda_error_string": ([_INT], ctypes.c_char_p),
 }
 # The launcher of every generated unit (csrc/dag_round.cuh).

@@ -40,7 +40,7 @@ package's ``mesh=``; every rank repeats the host phases and ends with the
 same proof bytes as the unsharded prove.  The transcript itself
 stays on the host: it is sequential, cheap, and consensus-critical.
 Protocol v3 is v2 with Poseidon2-over-BabyBear as the hash of the forest
-and of both Ligero commitments (ops/poseidon2.py, torch ops on the device);
+and of both Ligero commitments (ops/poseidon2.py: the CUDA kernels P1-P3 on the card);
 protocol v4 is v2 with the 43 witness MLEs as ``w:<name>`` columns of the
 DATA commitment and no forest (constraints/core_arg.py).  ``device``
 defaults to the card and raises where there is none.
