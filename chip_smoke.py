@@ -1149,17 +1149,18 @@ def main() -> int:
         f"host_anchor_s {b['host_anchor_s']}, mul_chain launches {chain_launches}")
 
     # -- proves ------------------------------------------------------------
-    def port_prove(program, entry, segments, tape, max_steps):
+    def port_prove(program, entry, segments, tape, max_steps, field=F):
         keccak.LAUNCHES.update(leaves=0, merge=0)
-        prover = zt.Prover(F, seed=0, device=dev)
+        prover = zt.Prover(field, seed=0, device=dev)
         proof = prover.prove(program, entry, None, max_steps, segments, tape)
         counts = dict(keccak.LAUNCHES)
         if proof.metadata.num_steps > 1 and not (counts["leaves"] > 0 and counts["merge"] > 0):
             raise AssertionError(f"the prove did not launch both kernels: {counts}")
         if proof.metadata.num_steps >= 1 << 20 and not prover.use_native_vm:
             raise AssertionError("the native VM is required at 2^20 steps and above")
-        data = ser.serialize(proof)
-        verdict = zt.Verifier(F).verify(ser.deserialize(data), program)
+        field_ser = zt.serialization.BinarySerializer(field)
+        data = field_ser.serialize(proof)
+        verdict = zt.Verifier(field).verify(field_ser.deserialize(data), program)
         if verdict != "Accept":
             raise AssertionError(f"the port's proof was rejected: {verdict}")
         return data, prover, counts
@@ -1211,6 +1212,15 @@ def main() -> int:
         log(f"phase 4 {name}: steps {prover.last_timings['num_steps']} sha256 {sha(data)[:16]} == pinned, "
             f"{len(data)} B, Accept, launches {counts}")
         log(f"  port timings: {timings(prover)}")
+
+    # -- phase 4b: v1 over the other fields below 2^31 ----------------------
+    for name in ("v1-koalabear-nop-2^16", "v1-mersenne31-nop-2^16"):
+        program, entry, segments, tape, max_steps, case = load_case(name)
+        field = getattr(zt.core.field, case["field"])
+        data, prover, counts = port_prove(program, entry, segments, tape, max_steps, field=field)
+        check_pinned(name, case, data, prover.last_timings["num_steps"])
+        log(f"phase 4b {name}: p = {field.MODULUS}, steps {prover.last_timings['num_steps']} sha256 "
+            f"{sha(data)[:16]} == pinned, {len(data)} B, Accept, launches {counts}")
 
     # -- phase 5: the v1 main path at 2^22 steps ---------------------------
     program, entry, segments, tape, max_steps, case = load_case("v1-nop-2^22")

@@ -17,7 +17,9 @@ their memory back.  ``--only`` refreshes some entries and keeps the rest.
 
 A case names its program as data: ``{"kind": "nop", "count": N}`` is N
 NOP instructions at 0x1000; ``{"kind": "fixture", "name": ..., "tape":
-[...]}`` is a guest ELF under tests/fixtures/ with its input tape.
+[...]}`` is a guest ELF under tests/fixtures/ with its input tape.  A case
+over another field than BabyBear names it (``FIELDS``), and its entry
+carries the field's name under ``"field"``.
 """
 
 from __future__ import annotations
@@ -56,7 +58,11 @@ CASES = {
     "v3-nop-2^16": (3, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
     "v3-fibonacci-10000": (3, {**FIB, "tape": [10_000]}, 1 << 17, "large"),
     "v3-nop-2^20": (3, {"kind": "nop", "count": 1 << 20}, 1 << 21, "large"),
+    "v1-koalabear-nop-2^16": (1, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
+    "v1-mersenne31-nop-2^16": (1, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
 }
+# case name -> its field, a name of zigz_tpu.core.field; BabyBear elsewhere
+FIELDS = {"v1-koalabear-nop-2^16": "KoalaBear", "v1-mersenne31-nop-2^16": "Mersenne31"}
 
 
 def prove_case(name: str) -> dict:
@@ -65,6 +71,7 @@ def prove_case(name: str) -> dict:
     import zigz_tpu as z
 
     version, program_spec, max_steps, size = CASES[name]
+    F = getattr(z.core.field, FIELDS.get(name, "BabyBear"))
     entry, segments, tape = 0x1000, None, program_spec.get("tape")
     if program_spec["kind"] == "nop":
         program = bytes([0x13, 0x00, 0x00, 0x00]) * program_spec["count"]
@@ -73,11 +80,13 @@ def prove_case(name: str) -> dict:
             program = f.read()
         loaded = z.elf.load(program)
         entry, segments = loaded.entry_pc, loaded.segments
-    proof = z.Prover(z.BabyBear, seed=0, protocol_version=version).prove(
+    proof = z.Prover(F, seed=0, protocol_version=version).prove(
         program, entry, None, max_steps, segments, tape)
-    data = z.serialization.BinarySerializer(z.BabyBear).serialize(proof)
+    data = z.serialization.BinarySerializer(F).serialize(proof)
+    field = {"field": FIELDS[name]} if name in FIELDS else {}
     return {
         "protocol_version": version,
+        **field,
         "program": program_spec,
         "max_steps": max_steps,
         "size": size,

@@ -101,15 +101,30 @@ def test_port_has_no_size_gate():
     assert prover.last_timings["num_steps"] == 5 and "forest_s" in prover.last_timings
 
 
-def test_protocols_beyond_v2_are_not_ported():
-    """v3 and v4 are ported; a version beyond them, or another field under
-    them, is refused as zigz_tpu refuses it."""
-    from zigz_tpu_torch.core.field import Goldilocks
+def test_protocols_and_fields_are_refused_as_zigz_tpu_refuses():
+    """v1 takes every field below 2^31 (tests/test_torch_fields.py); v3 and
+    v4 refuse another field when the prover is made, v2 when it proves, as
+    zigz_tpu does; a field of 2^31 and above is refused with the reason; a
+    version beyond v4 is refused."""
+    from zigz_tpu.core.field import KoalaBear as RefKoalaBear
+    from zigz_tpu_torch.core.field import Goldilocks, KoalaBear, Mersenne31, Mersenne61
 
+    for field in (KoalaBear, Mersenne31):
+        assert Prover(field, device="cpu").F is field
+    for field in (Goldilocks, Mersenne61):
+        with pytest.raises(ValueError, match=r"not below 2\^31"):
+            Prover(field, device="cpu")
     for version in (3, 4):
         assert Prover(F, device="cpu", protocol_version=version).protocol_version == version
+        for field in (Goldilocks, KoalaBear):
+            with pytest.raises(ValueError, match="BabyBear"):
+                Prover(field, device="cpu", protocol_version=version)
         with pytest.raises(ValueError, match="BabyBear"):
-            Prover(Goldilocks, device="cpu", protocol_version=version)
+            ReferenceProver(RefKoalaBear, protocol_version=version)
+    program = (FIXTURES / "nop4_program.bin").read_bytes()
+    for prover in (Prover(KoalaBear, device="cpu", protocol_version=2), ReferenceProver(RefKoalaBear, protocol_version=2)):
+        with pytest.raises(ValueError, match="use protocol_version=1 for this field"):
+            prover.prove(program, 0x1000, None, 1 << 16, None, None)
     with pytest.raises(ValueError, match="protocol_version"):
         Prover(F, device="cpu", protocol_version=5)
 

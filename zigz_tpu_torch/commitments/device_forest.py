@@ -58,7 +58,7 @@ import torch
 from .merkle import MerklePath, OpeningProof
 
 from ..ops import babybear as bb
-from ..ops import keccak, mle, poseidon2
+from ..ops import keccak, mle, poseidon2, witness_dev
 from ..parallel import dist
 
 __all__ = ["DeviceMerkleForest", "DISCARD_DIGESTS", "GROUP_LEAF_DIGESTS"]
@@ -153,8 +153,9 @@ class DeviceMerkleForest:
         leaves, then one K2 launch per level (``"sha3"``), or ``p2_leaves``
         and one ``p2_merge`` per level (``"poseidon2"``).  ``self.levels[k]``
         is level k of all B trees, or None for a freed level k < D."""
-        if F.MODULUS != bb.P:
-            raise ValueError(f"the port's field is BabyBear (p = {bb.P}), not {F.MODULUS}")
+        witness_dev.check_modulus(F.MODULUS)
+        if hash_mode == "poseidon2" and F.MODULUS != bb.P:
+            raise ValueError(f"the Poseidon2 forest is BabyBear-only (p = {bb.P}), not {F.MODULUS}")
         if lo.dtype != torch.int32 or lo.dim() != 2:
             raise ValueError(f"expected a (B, N) int32 tensor, got {lo.dtype} {tuple(lo.shape)}")
         B, n_loc = lo.shape
@@ -242,10 +243,11 @@ class DeviceMerkleForest:
         # Under a group of ranks: the local folds down to one value a row,
         # one all-gather of (B, D), the last log2 D folds on every rank.
         v_loc = self.local_height
-        values = mle.batch_eval_lsb(self.lo, pts[:, :v_loc])
+        p = self.F.MODULUS
+        values = mle.batch_eval_lsb(self.lo, pts[:, :v_loc], p)
         if v_loc < self.height:
             tops = dist.all_gather_cat(self.group, values[:, None], 1)
-            values = mle.batch_eval_lsb(tops, pts[:, v_loc:])
+            values = mle.batch_eval_lsb(tops, pts[:, v_loc:], p)
         return values.cpu().numpy().astype(np.uint64)
 
     def _recompute_siblings(self, k: int, rows: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,10 @@ entries, new[i] = (1-r) e[2i] + r e[2i+1] (multilinear.zig:110-144), so
 point[j] binds bit j of the row index.  MSB ordering (``fold_msb``,
 ``round_poly_msb``): a fold splits the table at its half, the ordering of
 the sumcheck and zerocheck rounds.
+
+Every function takes the modulus ``p`` (BabyBear's by default): the v1
+path evaluates over any field below 2^31 (prover/prover.py), where a
+product of two canonical values stays below p^2 < 2^62.
 """
 
 from __future__ import annotations
@@ -19,49 +23,49 @@ from .babybear import P
 __all__ = ["fold_lsb", "fold_msb", "sum_mod", "round_poly_msb", "batch_eval_lsb"]
 
 
-def fold_lsb(evals: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+def fold_lsb(evals: torch.Tensor, r: torch.Tensor, p: int = P) -> torch.Tensor:
     """(..., N) -> (..., N/2); ``r`` broadcasts over the leading dims.
 
-    Both products are < p^2 < 0.88 * 2^62, so their sum stays below 2^63
-    and one ``% P`` reduces it exactly in int64."""
+    Both products are < p^2 < 2^62 for p < 2^31, so their sum stays below
+    2^63 and one ``% p`` reduces it exactly in int64."""
     e0 = evals[..., 0::2]
     e1 = evals[..., 1::2]
-    return ((P + 1 - r) % P * e0 + r * e1) % P
+    return ((p + 1 - r) % p * e0 + r * e1) % p
 
 
-def fold_msb(evals: torch.Tensor, r) -> torch.Tensor:
+def fold_msb(evals: torch.Tensor, r, p: int = P) -> torch.Tensor:
     """(..., N) -> (..., N/2), split at the half: (1-r) e[:N/2] + r e[N/2:];
     ``r`` is a canonical int or a tensor that broadcasts.  Exact in int64
     for the same reason as :func:`fold_lsb`."""
     half = evals.shape[-1] // 2
-    return ((P + 1 - r) % P * evals[..., :half] + r * evals[..., half:]) % P
+    return ((p + 1 - r) % p * evals[..., :half] + r * evals[..., half:]) % p
 
 
-def sum_mod(evals: torch.Tensor, dim: int = -1) -> torch.Tensor:
+def sum_mod(evals: torch.Tensor, dim: int = -1, p: int = P) -> torch.Tensor:
     """Exact modular sum of canonical values along ``dim``.  Each value is
-    below 2^31, so up to 2^32 of them sum below 2^63 and one ``% P``
+    below 2^31, so up to 2^32 of them sum below 2^63 and one ``% p``
     reduces the int64 total exactly (the JAX package halves pairwise to
     stay in uint32)."""
     if evals.shape[dim] > 1 << 32:
         raise ValueError(f"sum_mod: {evals.shape[dim]} values could overflow int64")
-    return evals.sum(dim=dim) % P
+    return evals.sum(dim=dim) % p
 
 
-def round_poly_msb(evals: torch.Tensor):
+def round_poly_msb(evals: torch.Tensor, p: int = P):
     """Sumcheck round sums with the half-split convention: (g0, g1) = (sum
     of the first half, sum of the second half)."""
     half = evals.shape[-1] // 2
-    return sum_mod(evals[..., :half]), sum_mod(evals[..., half:])
+    return sum_mod(evals[..., :half], p=p), sum_mod(evals[..., half:], p=p)
 
 
-def batch_eval_lsb(matrix: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+def batch_eval_lsb(matrix: torch.Tensor, points: torch.Tensor, p: int = P) -> torch.Tensor:
     """Evaluate B MLEs at B points: matrix (B, 2^v), points (B, v), both
-    canonical int64 -> (B,) canonical int64."""
+    canonical mod ``p`` int64 -> (B,) canonical int64."""
     if matrix.dim() != 2 or points.dim() != 2 or points.shape[0] != matrix.shape[0]:
         raise ValueError(f"bad shapes {tuple(matrix.shape)} / {tuple(points.shape)}")
     if matrix.shape[1] != 1 << points.shape[1]:
         raise ValueError(f"{matrix.shape[1]} columns do not match {points.shape[1]} variables")
     cur = matrix
     for j in range(points.shape[1]):
-        cur = fold_lsb(cur, points[:, j : j + 1])
+        cur = fold_lsb(cur, points[:, j : j + 1], p)
     return cur[:, 0]

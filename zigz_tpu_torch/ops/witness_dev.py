@@ -15,6 +15,10 @@ in numpy, and the device rebuilds the witness rows:
 Output: (43, 2^v) int32 canonical values in the commitment row order of
 constraints/witness.py (0 = pc, 1..32 = x0..x31, 33..39 = opcode, rd, rs1,
 rs2, funct3, funct7, imm, 40..42 = mem addr, value, is_read).
+
+The modulus ``p`` is the field's (``F.MODULUS``, BabyBear's by default) and
+must lie below 2^31 (:func:`check_modulus`): the values are stored as int32
+words and reduced in int64, where (hi mod p) (2^32 mod p) < p^2 < 2^62.
 """
 
 from __future__ import annotations
@@ -25,10 +29,9 @@ import torch
 from ..device import resolve_device
 from .babybear import P
 
-__all__ = ["pack_trace_columns", "build_witness", "from_numpy", "check_slice_width", "NUM_ROWS"]
+__all__ = ["pack_trace_columns", "build_witness", "from_numpy", "check_slice_width", "check_modulus", "NUM_ROWS"]
 
 NUM_ROWS = 43
-_C32_MOD_P = (1 << 32) % P
 _FILL_VALUES = 1 << 27  # int64 values per transient of the register forward fill
 _M32 = np.uint64(0xFFFFFFFF)
 _U32_COLUMNS = (
@@ -37,14 +40,27 @@ _U32_COLUMNS = (
 )
 
 
-def pack_trace_columns(trace, initial_regs, num_vars: int) -> dict:
+def check_modulus(p: int) -> int:
+    """``p`` if the device witness and the int64 evaluations can hold it,
+    else raise: fields of 2^31 and above (Goldilocks, Mersenne61) need u64
+    witness words and 64 x 64-bit products mod p, which the port does not
+    have."""
+    if not 2 <= p < 1 << 31:
+        raise ValueError(f"p = {p} is not below 2^31: the port's v1 device path stores the witness as u32 words "
+                         "and reduces int64 products below p^2 < 2^62, which cannot hold it (zigz_tpu proves "
+                         "such a field on the host only)")
+    return p
+
+
+def pack_trace_columns(trace, initial_regs, num_vars: int, p: int = P) -> dict:
     """Native trace columns -> padded compact numpy arrays.
 
     Padding to 2^v: pc repeats its last value (witness.zig:79-91); the
     register write columns pad with wr_idx = 0, "no write", so the forward
     fill carries each register's last value (witness.zig:113-123);
     instruction and memory columns pad with zero (witness.zig:173-182,
-    :248-253).  u64 columns are split into uint32 (lo, hi) halves."""
+    :248-253).  u64 columns are split into uint32 (lo, hi) halves; the
+    initial registers are reduced mod ``p``."""
     cols = trace.columns
     n = trace.step_count()
     padded = 1 << num_vars
@@ -90,7 +106,7 @@ def pack_trace_columns(trace, initial_regs, num_vars: int) -> dict:
         "mem_flag": pad_zero(np.asarray(cols["mem_flag"]).astype(np.uint8)),
         "mem_addr_lo": mem_addr_lo, "mem_addr_hi": mem_addr_hi,
         "mem_val_lo": mem_val_lo, "mem_val_hi": mem_val_hi,
-        "initial_regs": (np.asarray(initial_regs, dtype=np.uint64) % np.uint64(P)).astype(np.uint32),
+        "initial_regs": (np.asarray(initial_regs, dtype=np.uint64) % np.uint64(p)).astype(np.uint32),
     }
 
 
@@ -106,13 +122,13 @@ def _upload(packed: dict, device: torch.device) -> dict:
     return out
 
 
-def _mod_u64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+def _mod_u64(lo: torch.Tensor, hi: torch.Tensor, p: int) -> torch.Tensor:
     """(lo + 2^32 hi) mod p of the unsigned u64 value, from int64 halves in
     [0, 2^32).  (hi % p) * (2^32 % p) < p^2 < 2^62, plus lo % p < p."""
-    return (lo % P + (hi % P) * _C32_MOD_P) % P
+    return (lo % p + (hi % p) * ((1 << 32) % p)) % p
 
 
-def _slice_columns(packed: dict, first: int, count: int) -> dict:
+def _slice_columns(packed: dict, first: int, count: int, p: int) -> dict:
     """The packed columns of steps ``first .. first + count`` as a trace of
     their own: every per-step column is cut, and ``initial_regs`` becomes the
     register file as it stands BEFORE step ``first`` (the value of the last
@@ -130,32 +146,34 @@ def _slice_columns(packed: dict, first: int, count: int) -> dict:
             if hits.size:
                 t = int(hits[-1])
                 lo, hi = int(packed["wr_val_lo"][t]), int(packed["wr_val_hi"][t])
-                regs[r] = (lo + (hi << 32)) % P
+                regs[r] = (lo + (hi << 32)) % p
     out["initial_regs"] = regs
     return out
 
 
-def build_witness(trace, initial_regs, num_vars: int, device, group=None) -> torch.Tensor:
-    """Native columnar trace -> (43, 2^v) int32 canonical witness on ``device``.
+def build_witness(trace, initial_regs, num_vars: int, device, group=None, p: int = P) -> torch.Tensor:
+    """Native columnar trace -> (43, 2^v) int32 witness on ``device``,
+    canonical mod ``p`` (the field's modulus, below 2^31).
 
     Under a ``group`` (parallel/multihost.py ``TraceGroup``) every rank
     builds its CONTIGUOUS columns ``[rank * N/D, (rank + 1) * N/D)`` only and
     returns that (43, N/D) slice; a slice of fewer than 2 steps raises."""
     device = resolve_device(device)
-    packed = pack_trace_columns(trace, initial_regs, num_vars)
+    check_modulus(p)
+    packed = pack_trace_columns(trace, initial_regs, num_vars, p)
     n = 1 << num_vars
     if group is not None:
         if group.device != device:
             raise ValueError(f"group on {group.device}, witness on {device}")
         n = check_slice_width(n, group.world_size)
-        packed = _slice_columns(packed, group.rank * n, n)
+        packed = _slice_columns(packed, group.rank * n, n, p)
     d = _upload(packed, device)
 
     imm_hi = (d["imm_lo"] >> 31) * 0xFFFFFFFF  # sign extension of bit 31
-    wr_val = _mod_u64(d["wr_val_lo"], d["wr_val_hi"])
+    wr_val = _mod_u64(d["wr_val_lo"], d["wr_val_hi"], p)
 
     out = torch.empty((NUM_ROWS, n), dtype=torch.int32, device=device)
-    out[0] = _mod_u64(d["pc_lo"], d["pc_hi"])
+    out[0] = _mod_u64(d["pc_lo"], d["pc_hi"], p)
 
     # Registers: row r at step t holds the value of the last write to r at a
     # step <= t, or r's initial value when there was none; x0 is zero.
@@ -173,10 +191,10 @@ def build_witness(trace, initial_regs, num_vars: int, device, group=None) -> tor
     out[1] = 0
 
     for row, key in enumerate(("opcode", "rd", "rs1", "rs2", "funct3", "funct7"), start=33):
-        out[row] = d[key] % P
-    out[39] = _mod_u64(d["imm_lo"], imm_hi)
-    out[40] = _mod_u64(d["mem_addr_lo"], d["mem_addr_hi"])
-    out[41] = _mod_u64(d["mem_val_lo"], d["mem_val_hi"])
+        out[row] = d[key] % p
+    out[39] = _mod_u64(d["imm_lo"], imm_hi, p)
+    out[40] = _mod_u64(d["mem_addr_lo"], d["mem_addr_hi"], p)
+    out[41] = _mod_u64(d["mem_val_lo"], d["mem_val_hi"], p)
     out[42] = d["mem_flag"] == 1
     return out
 
@@ -190,15 +208,15 @@ def check_slice_width(n: int, world_size: int) -> int:
     return per
 
 
-def from_numpy(lo_u32: np.ndarray, device) -> torch.Tensor:
-    """A (43, 2^v) canonical uint32 witness from the host (for example the
-    JAX package's ``np.asarray(build_witness_device(...))``) -> the port's
-    int32 tensor on ``device``."""
+def from_numpy(lo_u32: np.ndarray, device, p: int = P) -> torch.Tensor:
+    """A (43, 2^v) uint32 witness from the host, canonical mod ``p`` (for
+    example the JAX package's ``np.asarray(build_witness_device(...))``) ->
+    the port's int32 tensor on ``device``."""
     arr = np.ascontiguousarray(lo_u32)
     if not arr.flags.writeable:  # a JAX array's host view is read-only
         arr = arr.copy()
     if arr.dtype != np.uint32 or arr.ndim != 2:
         raise ValueError(f"expected a 2-D uint32 array, got {arr.dtype} {arr.shape}")
-    if arr.size and int(arr.max()) >= P:
+    if arr.size and int(arr.max()) >= check_modulus(p):
         raise ValueError("witness values must be canonical (< p)")
     return torch.from_numpy(arr.view(np.int32)).to(resolve_device(device))

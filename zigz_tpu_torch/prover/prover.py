@@ -82,8 +82,17 @@ class Prover:
                  use_native_vm: Optional[bool] = None, protocol_version: int = 1):
         if protocol_version not in (1, 2, 3, 4):
             raise ValueError(f"protocol_version={protocol_version}: expected 1, 2, 3 or 4")
-        if F.MODULUS != bb.P:
-            raise ValueError(f"the port's field is BabyBear (p = {bb.P}), not {F.MODULUS}")
+        # v1 runs over every field below 2^31, as zigz_tpu proves it;
+        # v2 raises at prove time (constraints/core_arg.py), v3 and v4 here,
+        # as zigz_tpu does.  Moduli of 2^31 and above do not fit the device
+        # witness's u32 words or its int64 products (witness_dev.check_modulus).
+        if protocol_version in (3, 4) and F.MODULUS != bb.P:
+            name = "Poseidon2 commitments" if protocol_version == 3 else "Ligero witness PCS"
+            raise ValueError(f"protocol_version={protocol_version} ({name}) is BabyBear-only")
+        witness_dev.check_modulus(F.MODULUS)
+        if group is not None and F.MODULUS != bb.P:
+            raise ValueError(f"a sharded prove is BabyBear-only (p = {bb.P}), not {F.MODULUS}: zigz_tpu's "
+                             "mesh path builds its witness and evaluations in BabyBear")
         self.F = F
         self.device = resolve_device(device)
         # Optional process group (parallel/multihost.py TraceGroup): shards
@@ -417,13 +426,13 @@ class Prover:
         trace = witness._trace
         if hasattr(trace, "columns"):
             lo = witness_dev.build_witness(trace, trace.initial_regs, witness.num_vars, self.device,
-                                           group=self.group)
+                                           group=self.group, p=self.F.MODULUS)
         else:  # the Python interpreter's trace: upload the host matrix, or this rank's columns of it
             matrix = witness.matrix
             if self.group is not None:
                 witness_dev.check_slice_width(matrix.shape[1], self.group.world_size)
                 matrix = np.ascontiguousarray(dist.shard_rows(self.group, matrix))
-            lo = witness_dev.from_numpy(matrix.astype(np.uint32), self.device)
+            lo = witness_dev.from_numpy(matrix.astype(np.uint32), self.device, p=self.F.MODULUS)
         synchronize(self.device)
         self.last_timings["witness_dev_s"] = time.perf_counter() - t0
 
