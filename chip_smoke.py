@@ -60,15 +60,21 @@ the last line:
      sample of the large ones: P1 ``p2_leaves`` on 43 * 2^20 values (the
      leaf level of the 2^20-step v3 forest), P2 ``p2_merge`` on 43 * 2^19
      pairs, P3 ``p2_absorb`` of one 544-row block at n_e = 2^19 into a
-     random carried state, and P1/P2 at 1, 255 and 4097 hashes, P3 at
-     1, 255 and 4097 columns times 0, 1, 7, 8, 9, 543, 544 and 545 rows;
-     the column sponge against ``_hash_columns(..., "poseidon2")``.  Kernel
-     and plain times by CUDA events at the main shapes, the launches of one
-     call (``torch.profiler``), and the bound: permutations times the
-     integer instructions of P1's SASS (one permutation a thread) over the
-     INT32 rate, against the bytes; no PyTorch call computes Poseidon2
-     (``library_ms`` null).  P1-P3's registers and spills (ptxas) are
-     printed in phase 1.  Then the device functions that are torch ops,
+     random carried state and at one resident wave of P3's columns (its
+     blocks an SM, from the occupancy query ``zigz_p2_blocks_per_sm``, x
+     SMs x 128), P1/P2 at 1, 2, 31, 33, 127, 129, 255 and 4097 hashes and
+     parents and P2 on a level of 3 trees, P3 at 1, 31, 33, 255 and 4097
+     columns times 0, 1, 7, 8, 9, 543, 544 and 545 rows; the column sponge
+     against ``_hash_columns(..., "poseidon2")``.  Kernel and plain times
+     by CUDA events at the main shapes (P3 also at the one-wave shape, with
+     both shapes' time a column), the launches of one call
+     (``torch.profiler``), and the bound: permutations times a fixed
+     yardstick, the 3,987 integer instructions a permutation of the first
+     CUDA version's P1 SASS (``P2_YARDSTICK_INSTR``), over the INT32 rate,
+     against the bytes; beside it the same with P1's SASS now (its round
+     loops rolled, each loop's body counted once); no PyTorch call computes
+     Poseidon2 (``library_ms`` null).  P1-P3's registers and spills
+     (ptxas) and both instruction counts' bounds are printed in phase 1.  Then the device functions that are torch ops,
      not kernels (the JAX package computes them in jnp): ``vecmat_device``
      against the host ``_vecmat``, and the time by CUDA events and the
      launches (``torch.profiler``) of it and of ``encode_rows`` at the
@@ -93,6 +99,9 @@ the last line:
   4. at 2^16 and 2^20 NOP steps and for the fibonacci guest (900,013
      steps), the port's v1 proof equals its pinned digest and verifies
      Accept.
+ 4b. v1 over the other fields below 2^31: 2^16 NOP steps over KoalaBear and
+     over Mersenne31, each equal to its pinned digest (made by zigz_tpu's
+     host path) and verified Accept by the port.
   5. the v1 main path: Prover(BabyBear, device="cuda").prove at 2^22 NOP
      steps, once, equal to its pinned digest and verified Accept; phase
      timings, steps/s, the forest's plan (nothing freed, one group) and
@@ -254,6 +263,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES = 132 * 64  # SMs x INT32 lanes per SM and clock (Hopper white paper)
 INT_OPCODES = ("LOP3", "SHF", "IADD3", "IADD", "VIADD", "IMAD", "LEA", "PRMT", "MOV", "ISETP", "SEL", "IMNMX")
 SASS_OPCODE = r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*)"
+# The same at every address: SASS_OPCODE reads four hex digits of address, so
+# it stops at the first 4,096 instructions of a function (K2's count is the
+# first 4,096's; PERF.md §6).
+ALL_SASS_OPCODE = r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*)"
+# The Poseidon2 kernels' yardstick, fixed since their first CUDA version:
+# the integer instructions of one permutation that its P1 SASS showed under
+# SASS_OPCODE, the first 4,096 of the 9,480 of its unrolled permutation.
+# P1-P3's bounds are taken against it, so that code that runs fewer or more
+# instructions is not read as less or more work (PERF.md §6).
+P2_YARDSTICK_INSTR = 3987
 V2_DATA_ROWS = 2089  # rows of the 2^20 v2 DATA commit, n = 2^16, n_e = 2^19
 V2_ADVICE_ROWS = 2540  # rows of its ADVICE commit, same n and n_e
 GROUP_KEYS = {"leaves": "K1", "merge": "K2", "columns": "K4", "absorb": "K5"}  # a rank's launch counts
@@ -506,29 +525,36 @@ def poseidon2_ptxas(build_log: str) -> dict:
 
 def poseidon2_sass_instructions(sass: str) -> tuple:
     """(integer ALU instructions, all instructions, opcode counts) of P1 in
-    ``cuobjdump -sass`` output: one Poseidon2 permutation (P0, inlined) and
-    a leaf's framing a thread."""
+    ``cuobjdump -sass`` output, at every address: a leaf's framing and one
+    Poseidon2 permutation (P0, inlined), whose round loops are rolled, so
+    each loop's body counts once."""
     part = next(part for part in sass.split("Function :")[1:] if "p2_leaves_kernel" in part.splitlines()[0])
-    opcodes = re.findall(SASS_OPCODE, part, flags=re.M)
+    opcodes = re.findall(ALL_SASS_OPCODE, part, flags=re.M)
     instr = sum(1 for op in opcodes if op in INT_OPCODES)
-    if not 3000 < instr < 40000:
+    if not 500 < instr < 40000:
         raise AssertionError(f"implausible instruction count {instr} for a Poseidon2 permutation in P1's SASS "
                              f"({len(opcodes)} in all)")
     return instr, len(opcodes), {op: opcodes.count(op) for op in sorted(set(opcodes))}
 
 
-def poseidon2_kernel_phase(dev, max_sm_mhz: float, p2_instr: int, n_leaves: int = 43 << 20,
+def poseidon2_kernel_phase(dev, max_sm_mhz: float, sass_instr: int, n_leaves: int = 43 << 20,
                            n_e: int = 1 << 19) -> dict:
     """Phase 2's Poseidon2 part: P1 (``p2_leaves``), P2 (``p2_merge``) and P3
     (``p2_absorb``) against their plain versions on the same card tensors
     (byte error 0) and against core/poseidon2.py, at the main path's shapes
     (the leaf level of the 2^20-step v3 forest, its first merge, one
-    544-row stream block at n_e = 2^19 from a random carried state) and at
-    the ragged sizes; the column sponge against ``_hash_columns``.  Returns
-    the three kernels' entries: byte error, kernel and plain ms by CUDA
-    events at the main shapes, the launches of one call (the profiler), and
-    the bound, the larger of the bytes over 3.35 TB/s and the permutations
-    times ``p2_instr`` (P1's SASS) over the INT32 rate at ``max_sm_mhz``."""
+    544-row stream block at n_e = 2^19 from a random carried state), at one
+    resident wave of P3's columns (its blocks an SM x SMs x 128, a 544-row
+    block) and at the ragged sizes; the column sponge against
+    ``_hash_columns``.  Returns the three kernels' entries: byte error,
+    kernel and plain ms by CUDA events at the main shapes, the launches of
+    one call (the profiler), and the bound, the larger of the bytes over
+    3.35 TB/s and the permutations times P2_YARDSTICK_INSTR over the INT32
+    rate at ``max_sm_mhz`` (``bound_ms_sass_count`` beside it: the same with
+    ``sass_instr``, P1's SASS now, round loops counted once); P3's entry
+    also holds the one-wave shape's ms and both shapes' time a column."""
+    import ctypes
+
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -536,7 +562,7 @@ def poseidon2_kernel_phase(dev, max_sm_mhz: float, p2_instr: int, n_leaves: int 
 
     from zigz_tpu_torch.commitments import ligero
     from zigz_tpu_torch.core import poseidon2 as p2_host
-    from zigz_tpu_torch.ops import poseidon2
+    from zigz_tpu_torch.ops import _build, poseidon2
 
     gen = torch.Generator(device=dev).manual_seed(2)
 
@@ -562,9 +588,10 @@ def poseidon2_kernel_phase(dev, max_sm_mhz: float, p2_instr: int, n_leaves: int 
 
     def bound(perms, nbytes):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = perms * p2_instr / (INT32_LANES * max_sm_mhz * 1e6) * 1e3
+        ops_ms, sass_ms = (perms * instr / (INT32_LANES * max_sm_mhz * 1e6) * 1e3
+                           for instr in (P2_YARDSTICK_INSTR, sass_instr))
         return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                    library_ms=None)
+                    bound_ms_sass_count=max(bytes_ms, sass_ms), library_ms=None)
 
     def canonical(shape):
         """Random canonical int32, its first two values 0 and p - 1."""
@@ -628,10 +655,18 @@ def poseidon2_kernel_phase(dev, max_sm_mhz: float, p2_instr: int, n_leaves: int 
     p2_state = canonical((16, n_e))
     p2_block = canonical((544, n_e))
     p2_errs = check_p2("main shapes", p2_vals, p2_level, p2_state, p2_block)
-    for n in (1, 255, 4097):
+    blocks = ctypes.c_int(0)
+    _build.check(_build.load().lib.zigz_p2_blocks_per_sm(2, ctypes.byref(blocks)), "zigz_p2_blocks_per_sm")
+    n_wave = blocks.value * torch.cuda.get_device_properties(dev).multi_processor_count * 128
+    wave_state, wave_block = canonical((16, n_wave)), canonical((544, n_wave))
+    p2_errs += check_p2(f"one wave of P3, {n_wave} columns", state=wave_state, msg=wave_block)
+    # a level of 3 trees of 64 leaves, as a tree-major forest merges it
+    p2_errs += check_p2("3 trees", level=canonical((8, 3, 64)).view(8, -1))
+    for n in (1, 2, 31, 33, 127, 129, 255, 4097):
         p2_errs += check_p2(f"n={n}", canonical((n,)), canonical((8, 2 * n)))
-        for rows in (0, 1, 7, 8, 9, 543, 544, 545):
-            p2_errs += check_p2(f"({rows}, {n})", state=canonical((16, n)), msg=canonical((rows, n)))
+        if n in (1, 31, 33, 255, 4097):
+            for rows in (0, 1, 7, 8, 9, 543, 544, 545):
+                p2_errs += check_p2(f"({rows}, {n})", state=canonical((16, n)), msg=canonical((rows, n)))
     p2_err = {k: max(e for name, e in p2_errs if name == k) for k in ("P1", "P2", "P3")}
     if any(p2_err.values()):
         raise AssertionError(f"the Poseidon2 kernels disagree with their plain versions: byte errors {p2_err}")
@@ -641,9 +676,10 @@ def poseidon2_kernel_phase(dev, max_sm_mhz: float, p2_instr: int, n_leaves: int 
         if poseidon2.limbs_to_bytes(poseidon2.p2_columns_stream(mat, 8 * n)) != want:
             raise AssertionError(f"the Poseidon2 column sponge differs from _hash_columns at ({r}, {n})")
     log("phase 2 Poseidon2: P1, P2, P3 == their plain versions (max byte err "
-        f"{p2_err}) and == core/poseidon2.py at the main shapes and at 1, 255, 4097 hashes and columns x 0, 1, 7, 8, "
-        "9, 543, 544, 545 rows; the column sponge (P3) == _hash_columns(poseidon2) at (1, 1), (13, 256), "
-        "(545, 128), (1100, 8) rows x columns")
+        f"{p2_err}) and == core/poseidon2.py at the main shapes, at one resident wave of P3 ({blocks.value} blocks an "
+        f"SM, {n_wave} columns x 544 rows), P1 and P2 at 1, 2, 31, 33, 127, 129, 255, 4097 hashes and parents and a "
+        "level of 3 trees, P3 at 1, 31, 33, 255, 4097 columns x 0, 1, 7, 8, 9, 543, 544, 545 rows; the column sponge "
+        "(P3) == _hash_columns(poseidon2) at (1, 1), (13, 256), (545, 128), (1100, 8) rows x columns")
 
     results = {}
     p2_scratch = p2_state.clone()
@@ -660,9 +696,18 @@ def poseidon2_kernel_phase(dev, max_sm_mhz: float, p2_instr: int, n_leaves: int 
                             **bound(perms, nbytes))
         r = results[key]
         log(f"phase 2 {key} ({tag}): {shape}: kernel {r['ms']} ms ({r['launches_a_call']} launch a call), plain "
-            f"{r['plain_ms']} ms, bound {r['bound_ms']} ms by {r['bound_by']} ({perms} permutations x {p2_instr} "
-            f"integer instructions)")
-    del p2_vals, p2_level, p2_state, p2_block, p2_scratch
+            f"{r['plain_ms']} ms, bound {r['bound_ms']} ms by {r['bound_by']} ({perms} permutations x "
+            f"{P2_YARDSTICK_INSTR} integer instructions, the yardstick: {r['bound_ms'] / r['ms']:.1%}); with P1's "
+            f"SASS now ({sass_instr}, round loops counted once) {r['bound_ms_sass_count']} ms")
+    wave_scratch = wave_state.clone()
+    p3 = results["p2_absorb"]
+    p3.update(wave_shape=f"state (16, {n_wave}) + (544, {n_wave}) rows: one resident wave ({blocks.value} blocks an SM)",
+              wave_ms=event_ms(lambda s: poseidon2.p2_absorb(s, wave_block), wave_scratch, 10),
+              wave_bound_ms=bound(68 * n_wave, n_wave * (2 * 16 * 4 + 544 * 4))["bound_ms"])
+    p3.update(us_a_column_wave=p3["wave_ms"] * 1e3 / n_wave, us_a_column_main=p3["ms"] * 1e3 / n_e)
+    log(f"phase 2 p2_absorb (P3) at one resident wave: {p3['wave_shape']}: {p3['wave_ms']} ms, "
+        f"{p3['us_a_column_wave']} us a column against {p3['us_a_column_main']} at {n_e} columns")
+    del p2_vals, p2_level, p2_state, p2_block, p2_scratch, wave_state, wave_block, wave_scratch
     torch.cuda.empty_cache()
     return results
 
@@ -914,10 +959,15 @@ def main() -> int:
         f"({ {op: chain_opcodes.count(op) for op in sorted(set(chain_opcodes))} })")
 
     # Poseidon2's: every integer instruction of P1, whose thread is one
-    # permutation (P0, inlined) and a leaf's framing, for P1-P3's bounds.
+    # permutation (P0, inlined, its round loops rolled) and a leaf's framing;
+    # P1-P3's bounds take the fixed yardstick, this count beside it.
     p2_instr, p2_all, p2_ops = poseidon2_sass_instructions(sass)
+    rate_ms = 1e3 / (INT32_LANES * max_sm_mhz * 1e6)
     log(f"phase 1 sass: p2_leaves_kernel (P1, one permutation a thread) has {p2_all} instructions, "
-        f"{p2_instr} of them integer ALU ({p2_ops})")
+        f"{p2_instr} of them integer ALU, round loops counted once ({p2_ops}): bounds "
+        f"{(43 << 20) * p2_instr * rate_ms} ms (P1, P2) and {68 * (1 << 19) * p2_instr * rate_ms} ms (P3); the "
+        f"yardstick, {P2_YARDSTICK_INSTR} integer instructions a permutation: {(43 << 20) * P2_YARDSTICK_INSTR * rate_ms} "
+        f"ms (P1, P2) and {68 * (1 << 19) * P2_YARDSTICK_INSTR * rate_ms} ms (P3)")
     p2_ptxas = poseidon2_ptxas(kernels.log)
     for name, report in p2_ptxas.items():
         log(f"phase 1 ptxas {name}: {report['registers']} registers, stack frame {report['stack_frame_B']} B, "
@@ -1735,7 +1785,8 @@ def main() -> int:
     # main path), v3 at 2^16, the fibonacci guest and under phase 10's forced
     # plan beside them.
     p2_source = "zigz_tpu_torch/csrc/poseidon2_kernels.cu"
-    measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "launches_a_call")
+    measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "launches_a_call",
+                "bound_ms_sass_count")
     for key, tag, name, replaces in (
             ("p2_leaves", "P1", "p2_leaves (P1)", "zigz_tpu/ops/poseidon2.py:130 _p2_leaves_jit"),
             ("p2_merge", "P2", "p2_merge (P2)", "zigz_tpu/ops/poseidon2.py:141 _p2_merge_jit"),
@@ -1747,7 +1798,8 @@ def main() -> int:
             "launches": launches_at_2_20[3][tag], **{k: results[key][k] for k in measured},
             "launches_v3_2_16": v3_launches["v3-nop-2^16"][tag],
             "launches_v3_fibonacci": v3_launches["v3-fibonacci-10000"][tag],
-            "launches_v3_2_16_forced_plan": forced_v3_counts[tag], "ptxas": p2_ptxas[f"{key}_kernel"]})
+            "launches_v3_2_16_forced_plan": forced_v3_counts[tag], "ptxas": p2_ptxas[f"{key}_kernel"],
+            **{k: v for k, v in results[key].items() if k.startswith(("wave", "us_a_column"))}})
     # P0, the permutation, is a device function inlined in the three and has
     # no launch of its own: P1 is one permutation a thread, so its entry
     # carries P1's measurements and the sum of the three's launches.
@@ -1756,7 +1808,8 @@ def main() -> int:
         "replaces": "zigz_tpu/ops/poseidon2.py:116 permute_device", "tpu_kernel": None,
         "launches": sum(launches_at_2_20[3][tag] for tag in ("P1", "P2", "P3")),
         **{k: results["p2_leaves"][k] for k in measured}, "inlined_in": ["P1", "P2", "P3"],
-        "measured_as": "P1: one permutation per thread", "integer_instructions": p2_instr})
+        "measured_as": "P1: one permutation per thread", "integer_instructions_yardstick": P2_YARDSTICK_INSTR,
+        "integer_instructions_sass": p2_instr})
     log(json.dumps({"torch_ops": torch_ops}))
     log(json.dumps(kernels_line))
     log(info["nvidia_smi"])

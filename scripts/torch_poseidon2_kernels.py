@@ -7,8 +7,12 @@ times and bounds.
 
 Builds the CUDA kernels as chip_smoke.py does, prints ptxas's registers and
 spills of P1-P3 and the integer instructions of P1's SASS (one permutation
-a thread), then runs ``chip_smoke.poseidon2_kernel_phase`` at the shapes of
-the 2^20-step v3 prove.  The card's nvidia-smi line comes first, one JSON
+a thread, its round loops counted once), then runs
+``chip_smoke.poseidon2_kernel_phase`` at the shapes of the 2^20-step v3
+prove and at one resident wave of P3 (bounds against the fixed yardstick
+``chip_smoke.P2_YARDSTICK_INSTR``, P1's SASS count beside it).  Run from a
+parent's checkout and from this one in turns, it compares two versions of
+the kernels inside one call.  The card's nvidia-smi line comes first, one JSON
 line of the three kernels' entries last.  It imports nothing of JAX or of
 the JAX package (chip_smoke.py blocks both on import)."""
 

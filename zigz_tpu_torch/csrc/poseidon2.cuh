@@ -4,7 +4,8 @@
 // of a column sponge (P3).  poseidon2_kernels.cu launches the bodies, one
 // thread a hash or a column; under a host compiler the same bodies run in
 // the extern "C" host entries at the end of this file, the CPU tests'
-// entry (tests/test_torch_poseidon2_kernels.py).
+// entry (tests/test_torch_poseidon2_kernels.py,
+// tests/test_torch_poseidon2_split.py).
 //
 // What it replaces: zigz_tpu/ops/poseidon2.py:116 permute_device (jnp over
 // Montgomery lanes, jitted as :130 _p2_leaves_jit and :141 _p2_merge_jit;
@@ -17,15 +18,17 @@
 // What bounds it: integer operations.  A permutation is the initial
 // external layer, 4 full rounds, 13 partial rounds and 4 full rounds: 564
 // S-box products and 208 diagonal products (Montgomery) and nine external
-// layers of small-constant sums, 3,987 integer instructions in P1's SASS
-// for sm_90a (PERF.md).  A leaf reads 4 bytes and writes 32 for all of
-// that, a column of the sponge reads 32 bytes a permutation.
+// layers of small-constant sums: 9,266 integer instructions of the 9,480
+// of a fully unrolled permutation in P1's SASS for sm_90a (PERF.md §6).
+// A leaf reads 4 bytes and writes 32 for all of that, a column of the
+// sponge reads 32 bytes a permutation.
 //
 // What the design does about it: the 16 lanes live in registers as
-// canonical Montgomery u32 (babybear.cuh), the round loops are unrolled,
-// and the round constants come as one struct by value (Consts, 157 u32 in
-// Montgomery form, filled by the wrapper from core/poseidon2.py), so a warp
-// reads each from parameter space at the same address.  The external
+// canonical Montgomery u32 (babybear.cuh), the round loops stay rolled
+// (zigz_p2_permute), and the round constants come as one struct by value
+// (Consts, 157 u32 in Montgomery form, filled by the wrapper from
+// core/poseidon2.py), so a warp reads each from parameter space at the
+// same address.  The external
 // layer's M4 has entries 1 to 7: each output is one u64 sum of products by
 // those constants, below 16 p < 2^35, reduced once (reduce35; no u64 %,
 // which is a software routine on the card).  The partial round's lane sum
@@ -68,11 +71,10 @@ ZIGZ_HD uint32_t reduce35(uint64_t t) {
   return r >= kP ? r - kP : r;
 }
 
-// x^7, of one value or of a team's parts (below).
-template <class V>
-ZIGZ_HD V sbox(V x) {
-  const V x2 = mont_mul(x, x);
-  const V x4 = mont_mul(x2, x2);
+// x^7.
+ZIGZ_HD uint32_t sbox(uint32_t x) {
+  const uint32_t x2 = mont_mul(x, x);
+  const uint32_t x4 = mont_mul(x2, x2);
   return mont_mul(mont_mul(x4, x2), x);
 }
 
@@ -116,18 +118,19 @@ ZIGZ_HD void partial_round(uint32_t s[kT], uint32_t rc, const uint32_t mu[kT]) {
 }
 
 // P0: the permutation of one state of canonical Montgomery lanes, in place:
-// the initial external layer, then the eight full rounds with the partial
-// rounds between the fourth and the fifth, so that the code holds one full
-// round and one partial round.  U rounds are unrolled together (all by
-// default; 1 leaves both loops rolled, a round's constants then read at a
-// run-time index).
-template <int U = kRoundsP>
+// the initial external layer, then the eight full rounds with the thirteen
+// partial rounds between the fourth and the fifth.  Both round loops stay
+// rolled (a round's constants read at a run-time index), so that the code
+// holds one full round and one partial round: P1 is 1,264 instructions.
+// Unrolled, a permutation is 9,480 instructions (148 KiB of code, 312 KiB
+// in P2's two), and P1, P2 and P3 took 11%, 32% and 25% longer than they
+// do rolled, with the same registers or more (PERF.md §6).
 ZIGZ_HD void zigz_p2_permute(uint32_t s[kT], const Consts& c) {
   external_linear(s);
-#pragma unroll (U)
+#pragma unroll 1
   for (int r = 0; r < kRoundsF; ++r) {
     if (r == kRoundsF / 2) {
-#pragma unroll (U)
+#pragma unroll 1
       for (int p = 0; p < kRoundsP; ++p) partial_round(s, c.rc_int[p], c.mu);
     }
     full_round(s, c.rc_ext[r]);
@@ -153,13 +156,12 @@ ZIGZ_HD uint64_t load_pair(const uint32_t* p) {
 
 // P1, hash i: the one-element message values[i] (canonical) in lane 0, its
 // length 1 in lane 8; digest limbs k = 0..7 to out[k n + i], canonical.
-template <int U = kRoundsP>
 ZIGZ_HD void leaf_body(const uint32_t* __restrict__ values, uint32_t* __restrict__ out, int64_t n, int64_t i,
                        const Consts& c) {
   uint32_t s[kT] = {};  // 0 is 0 in Montgomery form
   s[0] = to_mont(values[i]);
   s[kRate] = to_mont(1u);
-  zigz_p2_permute<U>(s, c);
+  zigz_p2_permute(s, c);
 #pragma unroll
   for (int k = 0; k < kRate; ++k) out[k * n + i] = redc(s[k]);
 }
@@ -167,7 +169,6 @@ ZIGZ_HD void leaf_body(const uint32_t* __restrict__ values, uint32_t* __restrict
 // P2, parent i of the level (8, 2 n_out) of digest limbs: the 16-limb
 // message left || right (children 2i and 2i + 1), two rate blocks, its
 // length 16 in lane 8; parent limbs to out[k n_out + i].
-template <int U = kRoundsP>
 ZIGZ_HD void merge_body(const uint32_t* __restrict__ level, uint32_t* __restrict__ out, int64_t n_out, int64_t i,
                         const Consts& c) {
   uint32_t s[kT] = {};
@@ -175,12 +176,12 @@ ZIGZ_HD void merge_body(const uint32_t* __restrict__ level, uint32_t* __restrict
 #pragma unroll
   for (int k = 0; k < kRate; ++k) s[k] = to_mont(static_cast<uint32_t>(load_pair(pairs + k * 2 * n_out)));
   s[kRate] = to_mont(16u);
-  zigz_p2_permute<U>(s, c);
+  zigz_p2_permute(s, c);
 #pragma unroll
   for (int k = 0; k < kRate; ++k) {
     s[k] = add_mod(s[k], to_mont(static_cast<uint32_t>(load_pair(pairs + k * 2 * n_out) >> 32)));
   }
-  zigz_p2_permute<U>(s, c);
+  zigz_p2_permute(s, c);
 #pragma unroll
   for (int k = 0; k < kRate; ++k) out[k * n_out + i] = redc(s[k]);
 }
@@ -190,7 +191,6 @@ ZIGZ_HD void merge_body(const uint32_t* __restrict__ level, uint32_t* __restrict
 // time into lanes 0..7, a permutation after each block; a short last block
 // adds to its first lanes only.  No rows: the bare state is permuted once,
 // as the sponge of an empty message does.
-template <int U = kRoundsP>
 ZIGZ_HD void absorb_body(uint32_t* __restrict__ state, const uint32_t* __restrict__ msg, int64_t rows, int64_t n,
                          int64_t j, const Consts& c) {
   uint32_t s[kT];
@@ -206,271 +206,11 @@ ZIGZ_HD void absorb_body(uint32_t* __restrict__ state, const uint32_t* __restric
     for (int k = 0; k < kRate; ++k) {
       if (k < live) s[k] = add_mod(s[k], to_mont(row[k * n]));
     }
-    zigz_p2_permute<U>(s, c);
+    zigz_p2_permute(s, c);
   }
 #pragma unroll
   for (int k = 0; k < kT; ++k) state[k * n + j] = redc(s[k]);
 }
-
-// -- The split layout: one state over a team of S threads -------------------
-//
-// A team of S threads (S = 2 or 4, neighbouring lanes of a warp) holds one
-// state: part q holds lanes q L .. q L + L - 1, L = 16 / S, which are L / 4
-// whole blocks of M4.  The M4 products stay in the part; the external
-// layer's four column sums and the partial round's lane sum are summed over
-// the team; the partial round's S-box is computed by every part on its
-// first lane and kept by part 0.  A Team is a policy class: its V is one
-// part's value on the card (DeviceTeam, one thread a part, __shfl_xor_sync
-// between them) and all S parts' values on the host (HostTeam over Parts,
-// the CPU tests' entry), so that the bodies below are the same code in both.
-//
-// What a Team provides: L; V, a part's lane value, and W, a sum of lane
-// values below 2^35; sum(v), the mod-p sum over the team's parts, in every
-// part; first(a, b), part 0's a and the other parts' b; wide(v), v as W;
-// uniform(x), x in every part; lanes(i, f), the value f(k) for lane
-// k = q L + i of each part q; each(i, v, f), f(k, lane k's value); and the
-// constants rc_ext(r, i), mu(i) for lane q L + i and rc_int(r).
-
-template <class Team>
-ZIGZ_HD void external_linear_team(const Team& team, typename Team::V x[]) {
-  using V = typename Team::V;
-  using W = typename Team::W;
-  constexpr int L = Team::L;
-  V y[L];
-#pragma unroll
-  for (int b = 0; b < L; b += 4) {
-    const W x0 = team.wide(x[b]), x1 = team.wide(x[b + 1]), x2 = team.wide(x[b + 2]), x3 = team.wide(x[b + 3]);
-    y[b] = reduce35(5 * x0 + 7 * x1 + x2 + 3 * x3);
-    y[b + 1] = reduce35(4 * x0 + 6 * x1 + x2 + x3);
-    y[b + 2] = reduce35(x0 + 3 * x1 + 5 * x2 + 7 * x3);
-    y[b + 3] = reduce35(x0 + x1 + 4 * x2 + 6 * x3);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    V col = y[i];
-#pragma unroll
-    for (int b = 4; b < L; b += 4) col = add_mod(col, y[b + i]);
-    col = team.sum(col);
-#pragma unroll
-    for (int b = 0; b < L; b += 4) x[b + i] = add_mod(y[b + i], col);
-  }
-}
-
-// P0 on a team, in place: the permutation of zigz_p2_permute, U rounds
-// unrolled together.
-template <int U = kRoundsP, class Team>
-ZIGZ_HD void zigz_p2_permute_team(const Team& team, typename Team::V x[]) {
-  using V = typename Team::V;
-  using W = typename Team::W;
-  constexpr int L = Team::L;
-  external_linear_team(team, x);
-#pragma unroll (U)
-  for (int r = 0; r < kRoundsF; ++r) {
-    if (r == kRoundsF / 2) {
-#pragma unroll (U)
-      for (int p = 0; p < kRoundsP; ++p) {
-        x[0] = team.first(sbox(add_mod(x[0], team.uniform(team.rc_int(p)))), x[0]);
-        W sum = team.wide(x[0]);
-#pragma unroll
-        for (int i = 1; i < L; ++i) sum = sum + team.wide(x[i]);
-        const V total = team.sum(reduce35(sum));
-#pragma unroll
-        for (int i = 0; i < L; ++i) x[i] = add_mod(total, mont_mul(team.mu(i), x[i]));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < L; ++i) x[i] = sbox(add_mod(x[i], team.rc_ext(r, i)));
-    external_linear_team(team, x);
-  }
-}
-
-// P2 on a team: parent i as merge_body; ``store`` false for a team past the
-// level's end (it runs for its warp's shuffles and writes nothing).
-template <int U = kRoundsP, class Team>
-ZIGZ_HD void merge_team(const Team& team, const uint32_t* __restrict__ level, uint32_t* __restrict__ out,
-                        int64_t n_out, int64_t i, bool store) {
-  using V = typename Team::V;
-  constexpr int L = Team::L;
-  const uint32_t* pairs = level + 2 * i;
-  V x[L];
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    x[l] = team.lanes(l, [&](int k) -> uint32_t {
-      if (k < kRate) return to_mont(static_cast<uint32_t>(load_pair(pairs + k * 2 * n_out)));
-      return k == kRate ? to_mont(16u) : 0u;
-    });
-  }
-  zigz_p2_permute_team<U>(team, x);
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    x[l] = add_mod(x[l], team.lanes(l, [&](int k) -> uint32_t {
-      return k < kRate ? to_mont(static_cast<uint32_t>(load_pair(pairs + k * 2 * n_out) >> 32)) : 0u;
-    }));
-  }
-  zigz_p2_permute_team<U>(team, x);
-  if (store) {
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      team.each(l, x[l], [&](int k, uint32_t v) {
-        if (k < kRate) out[k * n_out + i] = redc(v);
-      });
-    }
-  }
-}
-
-// P3 on a team: column j as absorb_body; ``store`` as in merge_team.
-template <int U = kRoundsP, class Team>
-ZIGZ_HD void absorb_team(const Team& team, uint32_t* __restrict__ state, const uint32_t* __restrict__ msg,
-                         int64_t rows, int64_t n, int64_t j, bool store) {
-  using V = typename Team::V;
-  constexpr int L = Team::L;
-  V x[L];
-#pragma unroll
-  for (int l = 0; l < L; ++l) x[l] = team.lanes(l, [&](int k) -> uint32_t { return to_mont(state[k * n + j]); });
-  const int64_t blocks = rows > 0 ? (rows + kRate - 1) / kRate : 1;
-  for (int64_t b = 0; b < blocks; ++b) {
-    const uint32_t* row = msg + b * kRate * n + j;
-    const int64_t live = rows - b * kRate;  // a short last block adds to its first lanes only
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      x[l] = add_mod(x[l], team.lanes(l, [&](int k) -> uint32_t {
-        return k < kRate && k < live ? to_mont(row[k * n]) : 0u;
-      }));
-    }
-    zigz_p2_permute_team<U>(team, x);
-  }
-  if (store) {
-#pragma unroll
-    for (int l = 0; l < L; ++l) team.each(l, x[l], [&](int k, uint32_t v) { state[k * n + j] = redc(v); });
-  }
-}
-
-#ifdef __CUDACC__
-
-// A team of S neighbouring threads of a warp; part q = the lane mod S.  Every
-// thread of the warp must run the team's sums (full-mask shuffles).  The
-// constants ``c`` lie in shared memory: the parts read lanes q L + i of a
-// round, S words in S banks, one load.
-template <int S>
-struct DeviceTeam {
-  static constexpr int L = kT / S;
-  using V = uint32_t;
-  using W = uint64_t;
-  const Consts& c;
-  int q;
-
-  ZIGZ_HD V sum(V v) const {
-#ifdef __CUDA_ARCH__
-#pragma unroll
-    for (int m = 1; m < S; m <<= 1) v = add_mod(v, __shfl_xor_sync(0xffffffffu, v, m));
-#endif
-    return v;
-  }
-  ZIGZ_HD V first(V a, V b) const { return q == 0 ? a : b; }
-  ZIGZ_HD W wide(V v) const { return v; }
-  ZIGZ_HD V uniform(uint32_t v) const { return v; }
-  template <class F>
-  ZIGZ_HD V lanes(int i, F f) const { return f(q * L + i); }
-  template <class F>
-  ZIGZ_HD void each(int i, V v, F f) const { f(q * L + i, v); }
-  ZIGZ_HD V rc_ext(int r, int i) const { return c.rc_ext[r][q * L + i]; }
-  ZIGZ_HD V mu(int i) const { return c.mu[q * L + i]; }
-  ZIGZ_HD uint32_t rc_int(int r) const { return c.rc_int[r]; }
-};
-
-// The constants into shared memory, by the whole block.
-__device__ __forceinline__ void load_consts(Consts& shared, const Consts& c) {
-  const uint32_t* from = reinterpret_cast<const uint32_t*>(&c);
-  uint32_t* to = reinterpret_cast<uint32_t*>(&shared);
-  for (int k = threadIdx.x; k < static_cast<int>(sizeof(Consts) / 4); k += blockDim.x) to[k] = from[k];
-  __syncthreads();
-}
-
-#else  // the host: a team's S parts side by side
-
-template <int S>
-struct Parts {
-  uint32_t v[S];
-};
-
-template <int S>
-struct Parts64 {
-  uint64_t v[S];
-};
-
-template <int S>
-Parts<S> add_mod(Parts<S> a, Parts<S> b) {
-  for (int p = 0; p < S; ++p) a.v[p] = zigz::add_mod(a.v[p], b.v[p]);
-  return a;
-}
-
-template <int S>
-Parts<S> mont_mul(Parts<S> a, Parts<S> b) {
-  for (int p = 0; p < S; ++p) a.v[p] = zigz::mont_mul(a.v[p], b.v[p]);
-  return a;
-}
-
-template <int S>
-Parts<S> reduce35(Parts64<S> t) {
-  Parts<S> out;
-  for (int p = 0; p < S; ++p) out.v[p] = reduce35(t.v[p]);
-  return out;
-}
-
-template <int S>
-Parts64<S> operator+(Parts64<S> a, Parts64<S> b) {
-  for (int p = 0; p < S; ++p) a.v[p] += b.v[p];
-  return a;
-}
-
-template <int S>
-Parts64<S> operator*(uint64_t k, Parts64<S> a) {
-  for (int p = 0; p < S; ++p) a.v[p] *= k;
-  return a;
-}
-
-template <int S>
-struct HostTeam {
-  static constexpr int L = kT / S;
-  using V = Parts<S>;
-  using W = Parts64<S>;
-  const Consts& c;
-
-  V sum(V a) const {
-    uint32_t t = 0;
-    for (int p = 0; p < S; ++p) t = zigz::add_mod(t, a.v[p]);
-    return uniform(t);
-  }
-  V first(V a, V b) const {
-    b.v[0] = a.v[0];
-    return b;
-  }
-  W wide(V a) const {
-    W w;
-    for (int p = 0; p < S; ++p) w.v[p] = a.v[p];
-    return w;
-  }
-  V uniform(uint32_t x) const {
-    V out;
-    for (int p = 0; p < S; ++p) out.v[p] = x;
-    return out;
-  }
-  template <class F>
-  V lanes(int i, F f) const {
-    V out;
-    for (int p = 0; p < S; ++p) out.v[p] = f(p * L + i);
-    return out;
-  }
-  template <class F>
-  void each(int i, V v, F f) const {
-    for (int p = 0; p < S; ++p) f(p * L + i, v.v[p]);
-  }
-  V rc_ext(int r, int i) const { return lanes(i, [&](int k) { return c.rc_ext[r][k]; }); }
-  V mu(int i) const { return lanes(i, [&](int k) { return c.mu[k]; }); }
-  uint32_t rc_int(int r) const { return c.rc_int[r]; }
-};
-
-#endif  // __CUDACC__
 
 }  // namespace zigz_p2
 
@@ -511,39 +251,6 @@ void zigz_p2_absorb_host(uint32_t* state, const uint32_t* msg, int64_t rows, int
   zigz_p2::Consts c;
   std::memcpy(&c, consts, sizeof(c));
   for (int64_t j = 0; j < n; ++j) zigz_p2::absorb_body(state, msg, rows, n, j, c);
-}
-
-// The split bodies over teams of ``split`` (2 or 4) parts; -1 for another.
-int zigz_p2_merge_team_host(const uint32_t* level, uint32_t* out, int64_t n_out, const uint32_t* consts,
-                            int split) {
-  zigz_p2::Consts c;
-  std::memcpy(&c, consts, sizeof(c));
-  for (int64_t i = 0; i < n_out; ++i) {
-    if (split == 2) {
-      zigz_p2::merge_team(zigz_p2::HostTeam<2>{c}, level, out, n_out, i, true);
-    } else if (split == 4) {
-      zigz_p2::merge_team(zigz_p2::HostTeam<4>{c}, level, out, n_out, i, true);
-    } else {
-      return -1;
-    }
-  }
-  return 0;
-}
-
-int zigz_p2_absorb_team_host(uint32_t* state, const uint32_t* msg, int64_t rows, int64_t n,
-                             const uint32_t* consts, int split) {
-  zigz_p2::Consts c;
-  std::memcpy(&c, consts, sizeof(c));
-  for (int64_t j = 0; j < n; ++j) {
-    if (split == 2) {
-      zigz_p2::absorb_team(zigz_p2::HostTeam<2>{c}, state, msg, rows, n, j, true);
-    } else if (split == 4) {
-      zigz_p2::absorb_team(zigz_p2::HostTeam<4>{c}, state, msg, rows, n, j, true);
-    } else {
-      return -1;
-    }
-  }
-  return 0;
 }
 
 }  // extern "C"

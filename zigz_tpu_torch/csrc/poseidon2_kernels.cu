@@ -7,10 +7,14 @@
 // _p2_merge_jit (adjacent pairing 2i, 2i + 1), P3 the port's torch-op
 // p2_absorb (the JAX package hashes those columns on the host:
 // zigz_tpu/commitments/ligero.py:386-392).  All three are bound by the
-// permutation's integer operations (poseidon2.cuh).  Loads and stores are
-// coalesced across neighbouring threads: limb k of hashes i, i + 1, ...
-// are neighbouring words, P2 reads each child pair as one 8-byte word, and
-// P3 reads row r of neighbouring columns.
+// permutation's integer operations (poseidon2.cuh), whose round loops stay
+// rolled.  Loads and stores are coalesced across neighbouring threads: limb
+// k of hashes i, i + 1, ... are neighbouring words, P2 reads each child
+// pair as one 8-byte word (twice: the left child before the first
+// permutation, the right one after it), and P3 reads row r of neighbouring
+// columns.  One thread a hash or column beat a column's state split over 2
+// or 4 threads of a warp, which added shuffles and duplicated S-boxes, and
+// register caps moved the rolled kernels by about 1% (PERF.md §6).
 //
 // Each launcher takes device pointers, sizes, the constants (a host array
 // of 157 u32, Montgomery form, copied into the launch's parameters) and the
@@ -85,6 +89,17 @@ int zigz_p2_merge(const void* level, void* out, int64_t n_out, const void* const
   p2_merge_kernel<<<blocks, kThreadsPerBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(level), static_cast<uint32_t*>(out), n_out, consts_of(consts));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of one kernel that an SM holds at once (kernel 0: P1, 1: P2, 2: P3),
+// into *blocks: the resident wave is that x SMs x the block's threads.
+int zigz_p2_blocks_per_sm(int kernel, int* blocks) {
+  const void* fn = kernel == 0 ? reinterpret_cast<const void*>(p2_leaves_kernel)
+                   : kernel == 1 ? reinterpret_cast<const void*>(p2_merge_kernel)
+                   : kernel == 2 ? reinterpret_cast<const void*>(p2_absorb_kernel)
+                   : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreadsPerBlock, 0));
 }
 
 // state (16, n) canonical, in place; msg (rows, n) canonical, rows >= 0.

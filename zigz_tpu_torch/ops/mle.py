@@ -9,9 +9,10 @@ point[j] binds bit j of the row index.  MSB ordering (``fold_msb``,
 ``round_poly_msb``): a fold splits the table at its half, the ordering of
 the sumcheck and zerocheck rounds.
 
-Every function takes the modulus ``p`` (BabyBear's by default): the v1
-path evaluates over any field below 2^31 (prover/prover.py), where a
-product of two canonical values stays below p^2 < 2^62.
+``fold_lsb`` and ``batch_eval_lsb`` take the modulus ``p`` (BabyBear's by
+default): the v1 path evaluates over any field below 2^31
+(prover/prover.py), where a product of two canonical values stays below
+p^2 < 2^62.
 """
 
 from __future__ import annotations
@@ -33,29 +34,29 @@ def fold_lsb(evals: torch.Tensor, r: torch.Tensor, p: int = P) -> torch.Tensor:
     return ((p + 1 - r) % p * e0 + r * e1) % p
 
 
-def fold_msb(evals: torch.Tensor, r, p: int = P) -> torch.Tensor:
+def fold_msb(evals: torch.Tensor, r) -> torch.Tensor:
     """(..., N) -> (..., N/2), split at the half: (1-r) e[:N/2] + r e[N/2:];
     ``r`` is a canonical int or a tensor that broadcasts.  Exact in int64
     for the same reason as :func:`fold_lsb`."""
     half = evals.shape[-1] // 2
-    return ((p + 1 - r) % p * evals[..., :half] + r * evals[..., half:]) % p
+    return ((P + 1 - r) % P * evals[..., :half] + r * evals[..., half:]) % P
 
 
-def sum_mod(evals: torch.Tensor, dim: int = -1, p: int = P) -> torch.Tensor:
+def sum_mod(evals: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Exact modular sum of canonical values along ``dim``.  Each value is
-    below 2^31, so up to 2^32 of them sum below 2^63 and one ``% p``
+    below 2^31, so up to 2^32 of them sum below 2^63 and one ``% P``
     reduces the int64 total exactly (the JAX package halves pairwise to
     stay in uint32)."""
     if evals.shape[dim] > 1 << 32:
         raise ValueError(f"sum_mod: {evals.shape[dim]} values could overflow int64")
-    return evals.sum(dim=dim) % p
+    return evals.sum(dim=dim) % P
 
 
-def round_poly_msb(evals: torch.Tensor, p: int = P):
+def round_poly_msb(evals: torch.Tensor):
     """Sumcheck round sums with the half-split convention: (g0, g1) = (sum
     of the first half, sum of the second half)."""
     half = evals.shape[-1] // 2
-    return sum_mod(evals[..., :half], p=p), sum_mod(evals[..., half:], p=p)
+    return sum_mod(evals[..., :half]), sum_mod(evals[..., half:])
 
 
 def batch_eval_lsb(matrix: torch.Tensor, points: torch.Tensor, p: int = P) -> torch.Tensor:
