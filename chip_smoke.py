@@ -61,20 +61,23 @@ the last line:
      leaf level of the 2^20-step v3 forest), P2 ``p2_merge`` on 43 * 2^19
      pairs, P3 ``p2_absorb`` of one 544-row block at n_e = 2^19 into a
      random carried state and at one resident wave of P3's columns (its
-     blocks an SM, from the occupancy query ``zigz_p2_blocks_per_sm``, x
+     blocks an SM, from the occupancy query ``zigz_p2_absorb_blocks_per_sm``, x
      SMs x 128), P1/P2 at 1, 2, 31, 33, 127, 129, 255 and 4097 hashes and
      parents and P2 on a level of 3 trees, P3 at 1, 31, 33, 255 and 4097
      columns times 0, 1, 7, 8, 9, 543, 544 and 545 rows; the column sponge
      against ``_hash_columns(..., "poseidon2")``.  Kernel and plain times
      by CUDA events at the main shapes (P3 also at the one-wave shape, with
      both shapes' time a column), the launches of one call
-     (``torch.profiler``), and the bound: permutations times a fixed
-     yardstick, the 3,987 integer instructions a permutation of the first
-     CUDA version's P1 SASS (``P2_YARDSTICK_INSTR``), over the INT32 rate,
-     against the bytes; beside it the same with P1's SASS now (its round
-     loops rolled, each loop's body counted once); no PyTorch call computes
-     Poseidon2 (``library_ms`` null).  P1-P3's registers and spills
-     (ptxas) and both instruction counts' bounds are printed in phase 1.  Then the device functions that are torch ops,
+     (``torch.profiler``), and the bound: the permutations times the SM
+     clocks of one, against the bytes.  Phase 1 builds P1 once more with
+     P0's round loops unrolled (``poseidon2_unrolled_count``, beside the
+     kernels' build) and counts one whole permutation's instructions in its
+     SASS: the clocks are the largest of its issue slots (128 a clock an SM)
+     and its ALU-pipe and IMAD instructions (64 a clock an SM each); the
+     first CUDA version's yardstick (3,987 instructions over the INT32
+     lanes) is logged beside each bound for comparison.  No PyTorch call
+     computes Poseidon2 (``library_ms`` null).  P1-P3's registers and spills
+     (ptxas) are printed in phase 1.  Then the device functions that are torch ops,
      not kernels (the JAX package computes them in jnp): ``vecmat_device``
      against the host ``_vecmat``, and the time by CUDA events and the
      launches (``torch.profiler``) of it and of ``encode_rows`` at the
@@ -267,12 +270,24 @@ SASS_OPCODE = r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*)"
 # it stops at the first 4,096 instructions of a function (K2's count is the
 # first 4,096's; PERF.md §6).
 ALL_SASS_OPCODE = r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*)"
-# The Poseidon2 kernels' yardstick, fixed since their first CUDA version:
-# the integer instructions of one permutation that its P1 SASS showed under
-# SASS_OPCODE, the first 4,096 of the 9,480 of its unrolled permutation.
-# P1-P3's bounds are taken against it, so that code that runs fewer or more
-# instructions is not read as less or more work (PERF.md §6).
-P2_YARDSTICK_INSTR = 3987
+# The Poseidon2 kernels' operations: the instructions of one whole
+# permutation, counted in the SASS of P1 built with P0's round loops unrolled
+# (poseidon2_unrolled_count), each of which runs once a permutation.  Every
+# instruction takes an issue slot (an SM's 4 warp schedulers issue one warp
+# instruction a clock each, 128 thread instructions), and the integer ALU
+# pipe's and the FMA pipe's integer instructions retire at 64 a clock an SM
+# each (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0); the bound is the largest of the three times.
+# An opcode whose pipe is not known for certain (VIADD, MOV) counts in the
+# issue slots only.
+SM_COUNT = 132
+ISSUE_LANES = 128  # thread instructions issued a clock an SM
+P2_PIPES = {"ALU": (("IADD3", "LOP3", "ISETP", "SEL", "SHF", "LEA", "PRMT", "IMNMX", "PLOP3"), 64),
+            "FMA": (("IMAD",), 64)}
+# The first CUDA version's count, printed beside the bounds for comparison
+# only: 3,987 integer instructions, the first 4,096 instructions of its P1
+# (SASS_OPCODE's cap), over INT32_LANES (PERF.md §6).
+P2_FIRST_VERSION_INSTR = 3987
 V2_DATA_ROWS = 2089  # rows of the 2^20 v2 DATA commit, n = 2^16, n_e = 2^19
 V2_ADVICE_ROWS = 2540  # rows of its ADVICE commit, same n and n_e
 GROUP_KEYS = {"leaves": "K1", "merge": "K2", "columns": "K4", "absorb": "K5"}  # a rank's launch counts
@@ -523,21 +538,42 @@ def poseidon2_ptxas(build_log: str) -> dict:
     return report
 
 
-def poseidon2_sass_instructions(sass: str) -> tuple:
-    """(integer ALU instructions, all instructions, opcode counts) of P1 in
-    ``cuobjdump -sass`` output, at every address: a leaf's framing and one
-    Poseidon2 permutation (P0, inlined), whose round loops are rolled, so
-    each loop's body counts once."""
+def poseidon2_unrolled_count(nvcc: str) -> dict:
+    """The instructions of one Poseidon2 permutation: nvcc builds
+    csrc/poseidon2_kernels.cu once more with P0's round loops unrolled
+    (``-DZIGZ_P2_UNROLLED_ROUNDS``) into a cubin under build/, nothing
+    launches it, and its P1 (a leaf's framing and one permutation, straight
+    line) is counted in ``cuobjdump -sass`` at every address, up to its last
+    EXIT, NOPs left out.  Returns the issued instructions, those of each
+    pipe of P2_PIPES, the SM clocks a permutation takes at the least (the
+    largest of issued / ISSUE_LANES and each pipe's count over its rate),
+    the limb that sets it, the opcode counts and nvcc's seconds."""
+    from zigz_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = _build.BUILD_DIR / "poseidon2_unrolled.cubin"
+    t0 = time.perf_counter()
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-DZIGZ_P2_UNROLLED_ROUNDS", "-cubin", "-o", str(cubin), str(_build.CSRC / "poseidon2_kernels.cu")],
+                   capture_output=True, text=True, check=True, timeout=600)
+    nvcc_s = time.perf_counter() - t0
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True, check=True).stdout
     part = next(part for part in sass.split("Function :")[1:] if "p2_leaves_kernel" in part.splitlines()[0])
     opcodes = re.findall(ALL_SASS_OPCODE, part, flags=re.M)
-    instr = sum(1 for op in opcodes if op in INT_OPCODES)
-    if not 500 < instr < 40000:
-        raise AssertionError(f"implausible instruction count {instr} for a Poseidon2 permutation in P1's SASS "
-                             f"({len(opcodes)} in all)")
-    return instr, len(opcodes), {op: opcodes.count(op) for op in sorted(set(opcodes))}
+    last_exit = len(opcodes) - 1 - opcodes[::-1].index("EXIT")
+    issued = [op for op in opcodes[: last_exit + 1] if op != "NOP"]
+    if not 5000 < len(issued) < 40000:
+        raise AssertionError(f"implausible count {len(issued)} for one unrolled Poseidon2 permutation in P1's SASS")
+    counts = {"issued": len(issued), **{pipe: sum(op in ops for op in issued) for pipe, (ops, _) in P2_PIPES.items()}}
+    clocks = {"issue": counts["issued"] / ISSUE_LANES,
+              **{pipe: counts[pipe] / rate for pipe, (_, rate) in P2_PIPES.items()}}
+    limb = max(clocks, key=clocks.get)
+    return dict(counts, sm_clocks=clocks[limb], limb=limb, nvcc_s=nvcc_s,
+                opcodes={op: issued.count(op) for op in sorted(set(issued))})
 
 
-def poseidon2_kernel_phase(dev, max_sm_mhz: float, sass_instr: int, n_leaves: int = 43 << 20,
+def poseidon2_kernel_phase(dev, max_sm_mhz: float, perm_count: dict, n_leaves: int = 43 << 20,
                            n_e: int = 1 << 19) -> dict:
     """Phase 2's Poseidon2 part: P1 (``p2_leaves``), P2 (``p2_merge``) and P3
     (``p2_absorb``) against their plain versions on the same card tensors
@@ -549,10 +585,11 @@ def poseidon2_kernel_phase(dev, max_sm_mhz: float, sass_instr: int, n_leaves: in
     ``_hash_columns``.  Returns the three kernels' entries: byte error,
     kernel and plain ms by CUDA events at the main shapes, the launches of
     one call (the profiler), and the bound, the larger of the bytes over
-    3.35 TB/s and the permutations times P2_YARDSTICK_INSTR over the INT32
-    rate at ``max_sm_mhz`` (``bound_ms_sass_count`` beside it: the same with
-    ``sass_instr``, P1's SASS now, round loops counted once); P3's entry
-    also holds the one-wave shape's ms and both shapes' time a column."""
+    3.35 TB/s and the permutations times ``perm_count["sm_clocks"]``
+    (poseidon2_unrolled_count) over SM_COUNT SMs at ``max_sm_mhz``; the
+    first CUDA version's yardstick (P2_FIRST_VERSION_INSTR) is logged beside it.
+    P3's entry also holds the one-wave shape's ms and both shapes' time a
+    column."""
     import ctypes
 
     import numpy as np
@@ -588,10 +625,9 @@ def poseidon2_kernel_phase(dev, max_sm_mhz: float, sass_instr: int, n_leaves: in
 
     def bound(perms, nbytes):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms, sass_ms = (perms * instr / (INT32_LANES * max_sm_mhz * 1e6) * 1e3
-                           for instr in (P2_YARDSTICK_INSTR, sass_instr))
+        ops_ms = perms * perm_count["sm_clocks"] / (SM_COUNT * max_sm_mhz * 1e6) * 1e3
         return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                    bound_ms_sass_count=max(bytes_ms, sass_ms), library_ms=None)
+                    library_ms=None)
 
     def canonical(shape):
         """Random canonical int32, its first two values 0 and p - 1."""
@@ -656,7 +692,8 @@ def poseidon2_kernel_phase(dev, max_sm_mhz: float, sass_instr: int, n_leaves: in
     p2_block = canonical((544, n_e))
     p2_errs = check_p2("main shapes", p2_vals, p2_level, p2_state, p2_block)
     blocks = ctypes.c_int(0)
-    _build.check(_build.load().lib.zigz_p2_blocks_per_sm(2, ctypes.byref(blocks)), "zigz_p2_blocks_per_sm")
+    _build.check(_build.load().lib.zigz_p2_absorb_blocks_per_sm(ctypes.byref(blocks)),
+                 "zigz_p2_absorb_blocks_per_sm")
     n_wave = blocks.value * torch.cuda.get_device_properties(dev).multi_processor_count * 128
     wave_state, wave_block = canonical((16, n_wave)), canonical((544, n_wave))
     p2_errs += check_p2(f"one wave of P3, {n_wave} columns", state=wave_state, msg=wave_block)
@@ -695,10 +732,12 @@ def poseidon2_kernel_phase(dev, max_sm_mhz: float, sass_instr: int, n_leaves: in
                             plain_ms=event_ms(plain, x, 1), launches_a_call=launches_of(fn, x),
                             **bound(perms, nbytes))
         r = results[key]
+        first_ms = perms * P2_FIRST_VERSION_INSTR / (INT32_LANES * max_sm_mhz * 1e6) * 1e3
         log(f"phase 2 {key} ({tag}): {shape}: kernel {r['ms']} ms ({r['launches_a_call']} launch a call), plain "
             f"{r['plain_ms']} ms, bound {r['bound_ms']} ms by {r['bound_by']} ({perms} permutations x "
-            f"{P2_YARDSTICK_INSTR} integer instructions, the yardstick: {r['bound_ms'] / r['ms']:.1%}); with P1's "
-            f"SASS now ({sass_instr}, round loops counted once) {r['bound_ms_sass_count']} ms")
+            f"{perm_count['sm_clocks']} SM clocks, set by {perm_count['limb']}: {r['bound_ms'] / r['ms']:.1%}); "
+            f"for comparison only, the first version's yardstick ({P2_FIRST_VERSION_INSTR} instructions over the INT32 "
+            f"lanes) {first_ms} ms ({first_ms / r['ms']:.1%})")
     wave_scratch = wave_state.clone()
     p3 = results["p2_absorb"]
     p3.update(wave_shape=f"state (16, {n_wave}) + (544, {n_wave}) rows: one resident wave ({blocks.value} blocks an SM)",
@@ -911,6 +950,7 @@ def main() -> int:
     with ThreadPoolExecutor(8) as pool:  # each loader waits on its own g++; nvcc runs beside them
         host_libs = [pool.submit(fn) for fn in (runtime._load_dag, runtime._load_ext4, runtime._load_ntt,
                                                 runtime._load_lasso, native_vm._load)]
+        p2_unrolled = pool.submit(poseidon2_unrolled_count, info["nvcc"])
         kernels = _build.load()
         if not runtime.NATIVE_AVAILABLE or any(lib.result() is None for lib in host_libs):
             raise RuntimeError("the host C++ runtime (zigz_tpu_torch/runtime/*.cpp) did not build")
@@ -958,16 +998,18 @@ def main() -> int:
     log(f"phase 1 sass: field_mul_chain has {len(chain_opcodes)} instructions, {chain_instr} of them integer ALU "
         f"({ {op: chain_opcodes.count(op) for op in sorted(set(chain_opcodes))} })")
 
-    # Poseidon2's: every integer instruction of P1, whose thread is one
-    # permutation (P0, inlined, its round loops rolled) and a leaf's framing;
-    # P1-P3's bounds take the fixed yardstick, this count beside it.
-    p2_instr, p2_all, p2_ops = poseidon2_sass_instructions(sass)
-    rate_ms = 1e3 / (INT32_LANES * max_sm_mhz * 1e6)
-    log(f"phase 1 sass: p2_leaves_kernel (P1, one permutation a thread) has {p2_all} instructions, "
-        f"{p2_instr} of them integer ALU, round loops counted once ({p2_ops}): bounds "
-        f"{(43 << 20) * p2_instr * rate_ms} ms (P1, P2) and {68 * (1 << 19) * p2_instr * rate_ms} ms (P3); the "
-        f"yardstick, {P2_YARDSTICK_INSTR} integer instructions a permutation: {(43 << 20) * P2_YARDSTICK_INSTR * rate_ms} "
-        f"ms (P1, P2) and {68 * (1 << 19) * P2_YARDSTICK_INSTR * rate_ms} ms (P3)")
+    # Poseidon2's: one whole permutation, from P1 built once more with P0's
+    # round loops unrolled (its nvcc ran beside the build above).
+    p2_count = p2_unrolled.result()
+    clock_ms = 1e3 / (SM_COUNT * max_sm_mhz * 1e6)
+    first_ms = 1e3 / (INT32_LANES * max_sm_mhz * 1e6)
+    log(f"phase 1 sass: P1 with P0's round loops unrolled (nvcc {p2_count['nvcc_s']:.1f} s) issues "
+        f"{p2_count['issued']} instructions a permutation, {p2_count['ALU']} on the ALU pipe and {p2_count['FMA']} "
+        f"IMAD on the FMA pipe ({p2_count['opcodes']}): {p2_count['sm_clocks']} SM clocks a permutation, set by "
+        f"{p2_count['limb']}; bounds {(43 << 20) * p2_count['sm_clocks'] * clock_ms} ms (P1, P2) and "
+        f"{68 * (1 << 19) * p2_count['sm_clocks'] * clock_ms} ms (P3); for comparison only, the first version's "
+        f"yardstick ({P2_FIRST_VERSION_INSTR} integer instructions over the INT32 lanes): "
+        f"{(43 << 20) * P2_FIRST_VERSION_INSTR * first_ms} ms (P1, P2) and {68 * (1 << 19) * P2_FIRST_VERSION_INSTR * first_ms} ms (P3)")
     p2_ptxas = poseidon2_ptxas(kernels.log)
     for name, report in p2_ptxas.items():
         log(f"phase 1 ptxas {name}: {report['registers']} registers, stack frame {report['stack_frame_B']} B, "
@@ -1119,7 +1161,7 @@ def main() -> int:
             f"{r['shape']}: kernel {r['ms']} ms, plain {r['plain_ms']} ms, "
             f"bound {r['bound_ms']} ms by {r['bound_by']}")
     # -- phase 2, Poseidon2: P1-P3 against their plain versions -------------
-    results.update(poseidon2_kernel_phase(dev, max_sm_mhz, p2_instr))
+    results.update(poseidon2_kernel_phase(dev, max_sm_mhz, p2_count))
 
     def canonical(shape):
         """Random canonical int32."""
@@ -1785,8 +1827,7 @@ def main() -> int:
     # main path), v3 at 2^16, the fibonacci guest and under phase 10's forced
     # plan beside them.
     p2_source = "zigz_tpu_torch/csrc/poseidon2_kernels.cu"
-    measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "launches_a_call",
-                "bound_ms_sass_count")
+    measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "launches_a_call")
     for key, tag, name, replaces in (
             ("p2_leaves", "P1", "p2_leaves (P1)", "zigz_tpu/ops/poseidon2.py:130 _p2_leaves_jit"),
             ("p2_merge", "P2", "p2_merge (P2)", "zigz_tpu/ops/poseidon2.py:141 _p2_merge_jit"),
@@ -1808,8 +1849,8 @@ def main() -> int:
         "replaces": "zigz_tpu/ops/poseidon2.py:116 permute_device", "tpu_kernel": None,
         "launches": sum(launches_at_2_20[3][tag] for tag in ("P1", "P2", "P3")),
         **{k: results["p2_leaves"][k] for k in measured}, "inlined_in": ["P1", "P2", "P3"],
-        "measured_as": "P1: one permutation per thread", "integer_instructions_yardstick": P2_YARDSTICK_INSTR,
-        "integer_instructions_sass": p2_instr})
+        "measured_as": "P1: one permutation per thread",
+        "instructions_a_permutation": {k: p2_count[k] for k in ("issued", "ALU", "FMA", "sm_clocks", "limb")}})
     log(json.dumps({"torch_ops": torch_ops}))
     log(json.dumps(kernels_line))
     log(info["nvidia_smi"])

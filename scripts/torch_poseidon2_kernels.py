@@ -6,11 +6,11 @@ times and bounds.
     python3 scripts/torch_poseidon2_kernels.py        (from the root of a checkout; needs one CUDA device)
 
 Builds the CUDA kernels as chip_smoke.py does, prints ptxas's registers and
-spills of P1-P3 and the integer instructions of P1's SASS (one permutation
-a thread, its round loops counted once), then runs
-``chip_smoke.poseidon2_kernel_phase`` at the shapes of the 2^20-step v3
-prove and at one resident wave of P3 (bounds against the fixed yardstick
-``chip_smoke.P2_YARDSTICK_INSTR``, P1's SASS count beside it).  Run from a
+spills of P1-P3 and the instructions of one permutation (P1 built once more
+with P0's round loops unrolled, ``chip_smoke.poseidon2_unrolled_count``),
+then runs ``chip_smoke.poseidon2_kernel_phase`` at the shapes of the
+2^20-step v3 prove and at one resident wave of P3, bounds from that count
+(the first version's yardstick logged beside them).  Run from a
 parent's checkout and from this one in turns, it compares two versions of
 the kernels inside one call.  The card's nvidia-smi line comes first, one JSON
 line of the three kernels' entries last.  It imports nothing of JAX or of
@@ -44,12 +44,11 @@ def main() -> int:
     chip_smoke.log(f"ptxas: {ptxas}")
     max_sm_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                                       capture_output=True, text=True, check=True).stdout.split()[0])
-    sass = subprocess.run([os.path.join(os.path.dirname(info["nvcc"]), "cuobjdump"), "-sass", kernels.path],
-                          capture_output=True, text=True, check=True).stdout
-    p2_instr, p2_all, p2_ops = chip_smoke.poseidon2_sass_instructions(sass)
-    chip_smoke.log(f"P1 SASS: {p2_all} instructions, {p2_instr} integer ALU ({p2_ops})")
-    results = chip_smoke.poseidon2_kernel_phase(torch.device("cuda", 0), max_sm_mhz, p2_instr)
-    chip_smoke.log(json.dumps({"nvidia_smi": info["nvidia_smi"], "max_sm_mhz": max_sm_mhz, "p2_instr": p2_instr,
+    count = chip_smoke.poseidon2_unrolled_count(info["nvcc"])
+    chip_smoke.log(f"one permutation (P1 unrolled): {count}")
+    results = chip_smoke.poseidon2_kernel_phase(torch.device("cuda", 0), max_sm_mhz, count)
+    chip_smoke.log(json.dumps({"nvidia_smi": info["nvidia_smi"], "max_sm_mhz": max_sm_mhz,
+                               "permutation": {k: v for k, v in count.items() if k != "opcodes"},
                                "ptxas": ptxas, "kernels": results}))
     return 0
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """One prove of N NOP steps on the card, its phase timings as one JSON line.
 
-    python scripts/torch_prove_once.py [--version 2] [--log2-steps 20] [--repeat 1] [--host-tail N] [--verify]
+    python scripts/torch_prove_once.py [--version 2] [--log2-steps 20] [--repeat 1] [--host-tail N]
 
 Run it from the root of a checkout: it imports the ``zigz_tpu_torch`` of the
 current directory, so the same script times two checkouts in turns
@@ -10,9 +10,9 @@ current directory, so the same script times two checkouts in turns
 first.  ``--host-tail N`` sets the width at which the extension zerochecks
 finish on the host (``zerocheck_dev_ext.HOST_TAIL_EXT``); each line carries
 their counters (``DEVICE_PROVES``: zerochecks and the zerocheck kernels'
-launches), the Poseidon2 kernels' launches and plain permutations, and the
-proof's sha256; ``--verify`` adds the port's verdict on the serialized
-proof and its seconds.  Needs a CUDA device."""
+launches), the Poseidon2 kernels' launches and plain permutations, the
+proof's sha256 and the port's verdict on the serialized proof with its
+seconds (after the prove, outside its timings).  Needs a CUDA device."""
 
 import argparse
 import hashlib
@@ -29,7 +29,6 @@ def main() -> int:
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--host-tail", type=int, default=None,
                     help="width at which the extension zerochecks finish on the host (default: the module's)")
-    ap.add_argument("--verify", action="store_true", help="verify each proof from its bytes")
     args = ap.parse_args()
 
     import torch
@@ -56,11 +55,9 @@ def main() -> int:
         timings = {k: v for k, v in prover.last_timings.items() if isinstance(v, (int, float, str))}
         ser = zt.serialization.BinarySerializer(zt.BabyBear)
         data = ser.serialize(proof)
-        verified = {}
-        if args.verify:
-            t0 = time.perf_counter()
-            verified = {"verdict": str(zt.Verifier(zt.BabyBear).verify(ser.deserialize(data), program)),
-                        "verify_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        verdict = str(zt.Verifier(zt.BabyBear).verify(ser.deserialize(data), program))
+        verify_s = time.perf_counter() - t0
         print(json.dumps({"tree": os.getcwd(), "version": args.version, "wall_s": wall,
                           "peak_device_memory_B": peaks["max_memory_allocated_B"],
                           "peak_device_reserved_B": peaks["max_memory_reserved_B"],
@@ -69,7 +66,7 @@ def main() -> int:
                           "p2_launches": dict(poseidon2.LAUNCHES),
                           "p2_permutations": poseidon2.PERMUTATIONS["count"],
                           "proof_bytes": len(data), "sha256": hashlib.sha256(data).hexdigest(),
-                          **verified, **timings}), flush=True)
+                          "verdict": verdict, "verify_s": verify_s, **timings}), flush=True)
     return 0
 
 

@@ -87,7 +87,7 @@ def test_fields_from_2_31_are_refused_with_the_reason(field_name):
     with pytest.raises(ValueError, match=r"not below 2\^31.*u32 words.*int64"):
         zt.Prover(PF, device="cpu")
     with pytest.raises(ValueError, match=r"not below 2\^31"):
-        witness_dev.check_modulus(PF.MODULUS)
+        mle.check_modulus(PF.MODULUS)
 
 
 @pytest.mark.parametrize("version", [2, 3, 4])

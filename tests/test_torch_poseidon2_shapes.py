@@ -1,13 +1,13 @@
-"""P2 and P3 as redesigned for Hopper, on the CPU, at the shapes that split
-unevenly: over the rate (0, 1, 7, 8, 9 and 544 rows), over blocks and
-warps (1, 31, 33 and 255 columns; 1, 2, 127 and 129 parents) and over the
-trees of a tree-major level.  csrc/poseidon2.cuh is built with ``g++ -O0``
-through its host entries (the bodies the kernels run: the permutation with
-its round loops rolled, the merge that reads each child pair twice) and held
-with tolerance zero (these are bytes) to the port's plain versions,
-zigz_tpu's jnp ``p2_merge`` (op by op under ``jax.disable_jit``, once for
-all shapes), core/poseidon2.py and zigz_tpu's ``_hash_columns``.  No prove
-runs here; tests/test_torch_poseidon2_kernels.py holds the rest.
+"""P2 and P3 on the CPU at the shapes that split unevenly: over the rate
+(0, 1, 7, 8, 9 and 544 rows), over blocks and warps (1, 31, 33 and 255
+columns; 1, 2, 127 and 129 parents) and over the trees of a tree-major
+level.  csrc/poseidon2.cuh is built with ``g++ -O0`` through its host
+entries (the bodies the kernels run: the permutation with its round loops
+rolled, the merge that reads each child pair twice) and held with tolerance
+zero (these are bytes) to the port's plain versions, zigz_tpu's jnp
+``p2_merge`` (op by op under ``jax.disable_jit``, once for all shapes),
+core/poseidon2.py and zigz_tpu's ``_hash_columns``.  No prove runs here;
+tests/test_torch_poseidon2_kernels.py holds the rest.
 """
 
 import jax

@@ -58,7 +58,7 @@ import torch
 from .merkle import MerklePath, OpeningProof
 
 from ..ops import babybear as bb
-from ..ops import keccak, mle, poseidon2, witness_dev
+from ..ops import keccak, mle, poseidon2
 from ..parallel import dist
 
 __all__ = ["DeviceMerkleForest", "DISCARD_DIGESTS", "GROUP_LEAF_DIGESTS"]
@@ -153,7 +153,7 @@ class DeviceMerkleForest:
         leaves, then one K2 launch per level (``"sha3"``), or ``p2_leaves``
         and one ``p2_merge`` per level (``"poseidon2"``).  ``self.levels[k]``
         is level k of all B trees, or None for a freed level k < D."""
-        witness_dev.check_modulus(F.MODULUS)
+        mle.check_modulus(F.MODULUS)
         if hash_mode == "poseidon2" and F.MODULUS != bb.P:
             raise ValueError(f"the Poseidon2 forest is BabyBear-only (p = {bb.P}), not {F.MODULUS}")
         if lo.dtype != torch.int32 or lo.dim() != 2:

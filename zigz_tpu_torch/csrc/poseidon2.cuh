@@ -5,7 +5,7 @@
 // thread a hash or a column; under a host compiler the same bodies run in
 // the extern "C" host entries at the end of this file, the CPU tests'
 // entry (tests/test_torch_poseidon2_kernels.py,
-// tests/test_torch_poseidon2_split.py).
+// tests/test_torch_poseidon2_shapes.py).
 //
 // What it replaces: zigz_tpu/ops/poseidon2.py:116 permute_device (jnp over
 // Montgomery lanes, jitted as :130 _p2_leaves_jit and :141 _p2_merge_jit;
@@ -117,6 +117,16 @@ ZIGZ_HD void partial_round(uint32_t s[kT], uint32_t rc, const uint32_t mu[kT]) {
   for (int i = 0; i < kT; ++i) s[i] = add_mod(total, mont_mul(mu[i], s[i]));
 }
 
+// The round loops' unrolling: rolled, unless ZIGZ_P2_UNROLLED_ROUNDS is
+// defined.  chip_smoke.py builds the unrolled variant only to count the
+// instructions of one whole permutation in its SASS, the kernels' bound;
+// nothing launches it.
+#ifdef ZIGZ_P2_UNROLLED_ROUNDS
+#define ZIGZ_P2_ROUND_LOOP _Pragma("unroll")
+#else
+#define ZIGZ_P2_ROUND_LOOP _Pragma("unroll 1")
+#endif
+
 // P0: the permutation of one state of canonical Montgomery lanes, in place:
 // the initial external layer, then the eight full rounds with the thirteen
 // partial rounds between the fourth and the fifth.  Both round loops stay
@@ -127,10 +137,10 @@ ZIGZ_HD void partial_round(uint32_t s[kT], uint32_t rc, const uint32_t mu[kT]) {
 // do rolled, with the same registers or more (PERF.md §6).
 ZIGZ_HD void zigz_p2_permute(uint32_t s[kT], const Consts& c) {
   external_linear(s);
-#pragma unroll 1
+  ZIGZ_P2_ROUND_LOOP
   for (int r = 0; r < kRoundsF; ++r) {
     if (r == kRoundsF / 2) {
-#pragma unroll 1
+      ZIGZ_P2_ROUND_LOOP
       for (int p = 0; p < kRoundsP; ++p) partial_round(s, c.rc_int[p], c.mu);
     }
     full_round(s, c.rc_ext[r]);
@@ -142,6 +152,8 @@ ZIGZ_HD void zigz_p2_permute(uint32_t s[kT], const Consts& c) {
 // an earlier one of the same word: the merges read each word twice, the
 // left child before the first permutation and the right one after it (from
 // L1 or L2), so that no child is held in registers across a permutation.
+// Held (one __ldg a word), P2 took 52 registers against 40 and ran 1.2-1.7%
+// longer (PERF.md §6).
 ZIGZ_HD uint64_t load_pair(const uint32_t* p) {
 #ifdef __CUDA_ARCH__
   uint64_t w;

@@ -91,15 +91,11 @@ int zigz_p2_merge(const void* level, void* out, int64_t n_out, const void* const
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of one kernel that an SM holds at once (kernel 0: P1, 1: P2, 2: P3),
-// into *blocks: the resident wave is that x SMs x the block's threads.
-int zigz_p2_blocks_per_sm(int kernel, int* blocks) {
-  const void* fn = kernel == 0 ? reinterpret_cast<const void*>(p2_leaves_kernel)
-                   : kernel == 1 ? reinterpret_cast<const void*>(p2_merge_kernel)
-                   : kernel == 2 ? reinterpret_cast<const void*>(p2_absorb_kernel)
-                   : nullptr;
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreadsPerBlock, 0));
+// Blocks of P3 that an SM holds at once, into *blocks: P3's resident wave
+// is that x SMs x the block's threads (chip_smoke.py times P3 at it).
+int zigz_p2_absorb_blocks_per_sm(int* blocks) {
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, p2_absorb_kernel, kThreadsPerBlock, 0));
 }
 
 // state (16, n) canonical, in place; msg (rows, n) canonical, rows >= 0.

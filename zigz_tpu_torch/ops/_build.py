@@ -81,7 +81,7 @@ _SYMBOLS = {
     "zigz_p2_leaves": ([_PTR, _PTR, _I64, _PTR, _PTR], _INT),
     "zigz_p2_merge": ([_PTR, _PTR, _I64, _PTR, _PTR], _INT),
     "zigz_p2_absorb": ([_PTR, _PTR, _I64, _I64, _PTR, _PTR], _INT),
-    "zigz_p2_blocks_per_sm": ([_INT, ctypes.POINTER(_INT)], _INT),
+    "zigz_p2_absorb_blocks_per_sm": ([ctypes.POINTER(_INT)], _INT),
     "zigz_cuda_error_string": ([_INT], ctypes.c_char_p),
 }
 # The launcher of every generated unit (csrc/dag_round.cuh).

@@ -12,7 +12,8 @@ the sumcheck and zerocheck rounds.
 ``fold_lsb`` and ``batch_eval_lsb`` take the modulus ``p`` (BabyBear's by
 default): the v1 path evaluates over any field below 2^31
 (prover/prover.py), where a product of two canonical values stays below
-p^2 < 2^62.
+p^2 < 2^62.  :func:`check_modulus` is that limit, for these folds and for
+the device witness's u32 words (ops/witness_dev.py) alike.
 """
 
 from __future__ import annotations
@@ -21,7 +22,19 @@ import torch
 
 from .babybear import P
 
-__all__ = ["fold_lsb", "fold_msb", "sum_mod", "round_poly_msb", "batch_eval_lsb"]
+__all__ = ["check_modulus", "fold_lsb", "fold_msb", "sum_mod", "round_poly_msb", "batch_eval_lsb"]
+
+
+def check_modulus(p: int) -> int:
+    """``p`` if the device witness and the int64 evaluations can hold it,
+    else raise: fields of 2^31 and above (Goldilocks, Mersenne61) need u64
+    witness words and 64 x 64-bit products mod p, which the port does not
+    have."""
+    if not 2 <= p < 1 << 31:
+        raise ValueError(f"p = {p} is not below 2^31: the port's v1 device path stores the witness as u32 words "
+                         "and reduces int64 products below p^2 < 2^62, which cannot hold it (zigz_tpu proves "
+                         "such a field on the host only)")
+    return p
 
 
 def fold_lsb(evals: torch.Tensor, r: torch.Tensor, p: int = P) -> torch.Tensor:

@@ -17,7 +17,7 @@ constraints/witness.py (0 = pc, 1..32 = x0..x31, 33..39 = opcode, rd, rs1,
 rs2, funct3, funct7, imm, 40..42 = mem addr, value, is_read).
 
 The modulus ``p`` is the field's (``F.MODULUS``, BabyBear's by default) and
-must lie below 2^31 (:func:`check_modulus`): the values are stored as int32
+must lie below 2^31 (:func:`mle.check_modulus`): the values are stored as int32
 words and reduced in int64, where (hi mod p) (2^32 mod p) < p^2 < 2^62.
 """
 
@@ -28,8 +28,9 @@ import torch
 
 from ..device import resolve_device
 from .babybear import P
+from .mle import check_modulus
 
-__all__ = ["pack_trace_columns", "build_witness", "from_numpy", "check_slice_width", "check_modulus", "NUM_ROWS"]
+__all__ = ["pack_trace_columns", "build_witness", "from_numpy", "check_slice_width", "NUM_ROWS"]
 
 NUM_ROWS = 43
 _FILL_VALUES = 1 << 27  # int64 values per transient of the register forward fill
@@ -38,18 +39,6 @@ _U32_COLUMNS = (
     "pc_lo", "pc_hi", "imm_lo", "wr_val_lo", "wr_val_hi",
     "mem_addr_lo", "mem_addr_hi", "mem_val_lo", "mem_val_hi", "initial_regs",
 )
-
-
-def check_modulus(p: int) -> int:
-    """``p`` if the device witness and the int64 evaluations can hold it,
-    else raise: fields of 2^31 and above (Goldilocks, Mersenne61) need u64
-    witness words and 64 x 64-bit products mod p, which the port does not
-    have."""
-    if not 2 <= p < 1 << 31:
-        raise ValueError(f"p = {p} is not below 2^31: the port's v1 device path stores the witness as u32 words "
-                         "and reduces int64 products below p^2 < 2^62, which cannot hold it (zigz_tpu proves "
-                         "such a field on the host only)")
-    return p
 
 
 def pack_trace_columns(trace, initial_regs, num_vars: int, p: int = P) -> dict:

@@ -63,7 +63,7 @@ from ..device import resolve_device, synchronize
 from ..elf import Segment
 from ..isa.rv64i import InvalidInstruction
 from ..ops import babybear as bb
-from ..ops import witness_dev
+from ..ops import mle, witness_dev
 from ..parallel import dist
 from ..vm.state import VMState
 from .proof import CompactLassoList, Proof, PublicIO
@@ -85,11 +85,11 @@ class Prover:
         # v1 runs over every field below 2^31, as zigz_tpu proves it;
         # v2 raises at prove time (constraints/core_arg.py), v3 and v4 here,
         # as zigz_tpu does.  Moduli of 2^31 and above do not fit the device
-        # witness's u32 words or its int64 products (witness_dev.check_modulus).
+        # witness's u32 words or its int64 products (mle.check_modulus).
         if protocol_version in (3, 4) and F.MODULUS != bb.P:
             name = "Poseidon2 commitments" if protocol_version == 3 else "Ligero witness PCS"
             raise ValueError(f"protocol_version={protocol_version} ({name}) is BabyBear-only")
-        witness_dev.check_modulus(F.MODULUS)
+        mle.check_modulus(F.MODULUS)
         if group is not None and F.MODULUS != bb.P:
             raise ValueError(f"a sharded prove is BabyBear-only (p = {bb.P}), not {F.MODULUS}: zigz_tpu's "
                              "mesh path builds its witness and evaluations in BabyBear")
