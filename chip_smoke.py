@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's v1 to v4 provers, its zerocheck and Poseidon2 kernels,
+"""Drive the PyTorch/CUDA port's v1 to v4 provers (v1 over all six fields), its zerocheck,
+Poseidon2 and 64-bit fold kernels,
 its forest's memory plan at 2^25 steps, its base-field device zerocheck,
 its standalone modules and its sharded prover (two ranks sharing the card)
 on one NVIDIA GPU and check them.
@@ -47,8 +48,13 @@ the last line:
      A hashlib check of a sample for every kernel, and the time of the
      Reed-Solomon encode of one 544-row block (torch ops, 2^16 -> 2^19).
      Each kernel's bound: the larger of its bytes (inputs read once,
-     outputs written once) over 3.35 TB/s and its Keccak permutations
-     times the counted instructions over 132 SMs x 64 INT32 lanes x the
+     outputs written once) over 3.35 TB/s and its operations: for K1 and
+     K2 the hashes times the SM clocks one thread of the kernel takes,
+     from its whole SASS counted at every address (``issue_count``: the
+     issue slots, 128 a clock an SM, against the ALU and FMA pipes, 64
+     each; the superseded count, K2's first 4,096 instructions over the
+     INT32 lanes, logged beside it); for K4 and K5 their Keccak
+     permutations times that count over 132 SMs x 64 INT32 lanes x the
      card's maximum SM clock.  No PyTorch call computes SHA3-256, so
      ``library_ms`` is null.
      Then the Poseidon2 kernels (csrc/poseidon2_kernels.cu over the
@@ -84,6 +90,18 @@ the last line:
      widths of the 2^20 proves.  The three advice twins are held against the host
      advice columns of every v2, v3 and v4 prove below, plane by plane,
      after that prove has returned (its timings carry none of the check).
+  2c. E1, the 64-bit fold (csrc/field64_kernels.cu over csrc/field64.cuh;
+     no TPU kernel: zigz_tpu evaluates these fields with object-dtype
+     integers on the host), against ``_fold_lsb_u64_plain`` on the same
+     card tensors over Goldilocks and Mersenne61 (``field64_kernel_phase``):
+     every fold of the 43 x 2^22 and 43 x 2^10 evaluations, one row of
+     2^10, v = 0, single folds at (1, 2), (3, 6) and (5, 510), edge values
+     (0, 1, p - 1, and for Goldilocks 2^63 and more) among values and
+     challenges; byte error 0; the whole 2^22 evaluation and its first fold
+     by CUDA events, kernel and plain; the bound from the bytes against the
+     outputs x one thread's SM clocks (``issue_count`` of the field's
+     instantiation); ptxas's registers and spills.  No PyTorch call
+     computes a 64-bit modular fold (``library_ms`` null).
   2b. the bench's multiply-chain kernel (csrc/field_kernels.cu, the
      headline of bench_torch.py; no TPU counterpart): ``babybear.mul_chain``
      against ``_mul_chain_plain`` on the card at 2^22 elements and at the
@@ -109,6 +127,14 @@ the last line:
      steps, once, equal to its pinned digest and verified Accept; phase
      timings, steps/s, the forest's plan (nothing freed, one group) and
      peak device memory, allocated and reserved.
+ 4c. (after phase 5, ``wide_field_phases``) v1 over Goldilocks and
+     Mersenne61: 2^16 and 2^20 NOP steps and the wide-value guest of
+     tests/torch_wide_guest.py (its code in the pin) in each field, equal
+     to the pins made by zigz_tpu's host path and verified Accept; E1
+     launched once a variable, K1 once, K2 once a level.
+ 5b. this slice's full-width run: both fields at 2^22 NOP steps, two
+     passes in one process with equal bytes, Accept, total_s, the phase
+     split and the peak device memory allocated and reserved.
   6. the v2 main path: Prover(BabyBear, device="cuda", protocol_version=2)
      at 2^16 NOP steps, for the fibonacci guest (60,013 steps) and at 2^20
      NOP steps, each equal to its pinned digest and verified Accept.  The
@@ -225,7 +251,10 @@ the last line:
      compared with nothing.
 
 The kernel launch counters are reset before each prove or commit and must
-be > 0 after it; the kernel line takes K1/K2's from phase 5
+be > 0 after it; the kernel line takes K1/K2's from phase 5 (their
+launches on the wide-field proves of phases 4c and 5b beside them), E1's
+from the Goldilocks 2^22 prove of phase 5b (every wide prove beside it),
+its measurements from phase 2c
 (``launches_large`` beside them from the 2^25 prove of phase 11), K5's from the
 2^20 prove of phase 6 (``launches_v4`` beside it from phase 8) and K4's from
 rank 0 of the sharded 2^20 v2 prove of phase 15, the one prove that runs it
@@ -559,18 +588,29 @@ def poseidon2_unrolled_count(nvcc: str) -> dict:
     nvcc_s = time.perf_counter() - t0
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True, check=True).stdout
-    part = next(part for part in sass.split("Function :")[1:] if "p2_leaves_kernel" in part.splitlines()[0])
+    count = issue_count(sass, "p2_leaves_kernel")
+    if not 5000 < count["issued"] < 40000:
+        raise AssertionError(f"implausible count {count['issued']} for one unrolled Poseidon2 permutation in P1's SASS")
+    return dict(count, nvcc_s=nvcc_s)
+
+
+def issue_count(sass: str, *names) -> dict:
+    """The instructions one thread of a straight-line kernel issues: the
+    first function of ``cuobjdump -sass`` output whose name holds every one
+    of ``names``, counted at every address (ALL_SASS_OPCODE) up to its last
+    EXIT, NOPs left out.  Returns the issued count, those of each pipe of
+    P2_PIPES, the SM clocks a thread takes at the least (the largest of
+    issued / ISSUE_LANES and each pipe's count over its rate), the limb
+    that sets it and the opcode counts."""
+    part = next(part for part in sass.split("Function :")[1:] if all(n in part.splitlines()[0] for n in names))
     opcodes = re.findall(ALL_SASS_OPCODE, part, flags=re.M)
     last_exit = len(opcodes) - 1 - opcodes[::-1].index("EXIT")
     issued = [op for op in opcodes[: last_exit + 1] if op != "NOP"]
-    if not 5000 < len(issued) < 40000:
-        raise AssertionError(f"implausible count {len(issued)} for one unrolled Poseidon2 permutation in P1's SASS")
     counts = {"issued": len(issued), **{pipe: sum(op in ops for op in issued) for pipe, (ops, _) in P2_PIPES.items()}}
     clocks = {"issue": counts["issued"] / ISSUE_LANES,
               **{pipe: counts[pipe] / rate for pipe, (_, rate) in P2_PIPES.items()}}
     limb = max(clocks, key=clocks.get)
-    return dict(counts, sm_clocks=clocks[limb], limb=limb, nvcc_s=nvcc_s,
-                opcodes={op: issued.count(op) for op in sorted(set(issued))})
+    return dict(counts, sm_clocks=clocks[limb], limb=limb, opcodes={op: issued.count(op) for op in sorted(set(issued))})
 
 
 def poseidon2_kernel_phase(dev, max_sm_mhz: float, perm_count: dict, n_leaves: int = 43 << 20,
@@ -750,6 +790,225 @@ def poseidon2_kernel_phase(dev, max_sm_mhz: float, perm_count: dict, n_leaves: i
     torch.cuda.empty_cache()
     return results
 
+
+
+def field64_kernel_phase(dev, max_sm_mhz: float, counts: dict, build_log: str) -> dict:
+    """Phase 2c: E1 (``field64.fold_lsb_u64``, csrc/field64_kernels.cu over
+    csrc/field64.cuh) against its plain version ``_fold_lsb_u64_plain`` on
+    the same card tensors, over Goldilocks and Mersenne61: every fold of
+    the (43, 2^22) and (43, 2^10) evaluations (so every width from 2^22
+    down to 2), one row of 2^10, single folds at (1, 2), (3, 6) and
+    (5, 510) (ragged blocks), and v = 0 (no launch); values and challenges
+    random canonical with 0, 1, p - 1, p - 2 and, over Goldilocks, 2^63 and
+    p - 2^32 (both 2^63 or more, negative as int64) among them.  Byte error
+    must be 0.  Times by CUDA events: the whole (43, 2^22) evaluation (22
+    launches) and its first fold alone, kernel and plain.  The bound: the
+    bytes (each fold's input and challenges read once, its output written
+    once) over 3.35 TB/s against the outputs x the SM clocks one thread of
+    the field's instantiation takes (``counts``, from ``issue_count``) over
+    SM_COUNT SMs at ``max_sm_mhz``.  No PyTorch call computes a 64-bit
+    modular fold (``library_ms`` null).  Returns an entry a field, with
+    ptxas's registers and spills of its instantiation."""
+    import torch
+
+    from zigz_tpu_torch.ops import _build, field64
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def byte_err(a, b) -> int:
+        return int((a.view(torch.uint8).to(torch.int16) - b.view(torch.uint8).to(torch.int16)).abs().max())
+
+    def event_ms(fn, reps) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bits(v: int) -> int:
+        return v - (1 << 64) if v >= 1 << 63 else v
+
+    def canonical(shape, p):
+        """Random canonical u64 bits as int64, the edge values first."""
+        if p == field64.GOLDILOCKS_P:
+            x = torch.randint(-(1 << 63), (1 << 63) - 1, shape, dtype=torch.int64, device=dev, generator=gen)
+            # the bits of p .. 2^64 - 1 are the int64 values -(2^32 - 1) .. -1: fold them below 2^32
+            x = torch.where((x < 0) & (x > -(1 << 32)), x & 0xFFFFFFFF, x)
+            edges = [0, 1, p - 1, p - 2, 1 << 63, p - (1 << 32)]
+        else:
+            x = torch.randint(0, p, shape, dtype=torch.int64, device=dev, generator=gen)
+            edges = [0, 1, p - 1, p - 2]
+        flat = x.view(-1)
+        k = min(len(edges), flat.numel())
+        flat[:k] = torch.tensor([bits(v) for v in edges[:k]], dtype=torch.int64, device=dev)
+        return x
+
+    def every_fold(matrix, points, p) -> int:
+        """Each fold of an evaluation against the plain fold of the same
+        input, then the evaluation against the last fold's value."""
+        err, cur = 0, matrix
+        for j in range(points.shape[1]):
+            r = points[:, j].contiguous()
+            out = field64.fold_lsb_u64(cur, r, p)
+            err = max(err, byte_err(out, field64._fold_lsb_u64_plain(cur, r, p)))
+            cur = out
+        return max(err, byte_err(field64.batch_eval_lsb_u64(matrix, points, p), cur[:, 0]))
+
+    def plain_eval(matrix, points, p):
+        """The plain version of the whole evaluation: one plain fold a variable."""
+        cur = matrix
+        for j in range(points.shape[1]):
+            cur = field64._fold_lsb_u64_plain(cur, points[:, j].contiguous(), p)
+        return cur[:, 0]
+
+    def bound(outputs: int, nbytes: int, clocks: float) -> dict:
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = outputs * clocks / (SM_COUNT * max_sm_mhz * 1e6) * 1e3
+        return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None)
+
+    def eval_work(b: int, width: int) -> tuple:
+        """(outputs, bytes) of the whole evaluation of b rows of ``width``."""
+        outputs = nbytes = 0
+        while width > 1:
+            outputs += b * (width // 2)
+            nbytes += b * (width + 1 + width // 2) * 8
+            width //= 2
+        return outputs, nbytes
+
+    results = {}
+    rows, log2_width = 43, 22
+    n = 1 << log2_width
+    for name, p in (("Goldilocks", field64.GOLDILOCKS_P), ("Mersenne61", field64.MERSENNE61_P)):
+        count = counts[name]
+        err = 0
+        for b, v in ((rows, 10), (1, 10), (rows, 0)):
+            err = max(err, every_fold(canonical((b, 1 << v), p), canonical((b, v), p), p))
+        for b, w in ((1, 2), (3, 6), (5, 510)):
+            x, r = canonical((b, w), p), canonical((b,), p)
+            err = max(err, byte_err(field64.fold_lsb_u64(x, r, p), field64._fold_lsb_u64_plain(x, r, p)))
+        matrix, points = canonical((rows, n), p), canonical((rows, log2_width), p)
+        err = max(err, every_fold(matrix, points, p))
+        if err:
+            raise AssertionError(f"E1 over {name} disagrees with its plain version: byte error {err}")
+        r0 = points[:, 0].contiguous()
+        outputs, nbytes = eval_work(rows, n)
+        entry = dict(
+            max_abs_err=err, shape=f"({rows}, 2^{log2_width}) -> ({rows},), {log2_width} folds [the v1 2^{log2_width} "
+                                   f"openings' evaluation over {name}]",
+            ms=event_ms(lambda: field64.batch_eval_lsb_u64(matrix, points, p), 20),
+            plain_ms=event_ms(lambda: plain_eval(matrix, points, p), 1),
+            **bound(outputs, nbytes, count["sm_clocks"]),
+            first_fold=dict(shape=f"({rows}, 2^{log2_width}) -> ({rows}, 2^{log2_width - 1})",
+                            ms=event_ms(lambda: field64.fold_lsb_u64(matrix, r0, p), 20),
+                            plain_ms=event_ms(lambda: field64._fold_lsb_u64_plain(matrix, r0, p), 2),
+                            **bound(rows * n // 2, rows * (n + 1 + n // 2) * 8, count["sm_clocks"])),
+            instructions_an_output={k: count[k] for k in ("issued", "ALU", "FMA", "sm_clocks", "limb")},
+            ptxas=_build.ptxas_report(next((part for part in build_log.split("Compiling entry function")[1:]
+                                            if "mle_fold_u64_kernel" in part.splitlines()[0]
+                                            and name in part.splitlines()[0]), "")))
+        first = entry["first_fold"]
+        log(f"phase 2c E1 over {name}: kernel == plain (max byte err {err}) at every fold of ({rows}, 2^{log2_width}) "
+            f"and ({rows}, 2^10), (1, 2^10), v = 0, and single folds at (1, 2), (3, 6), (5, 510), edge values "
+            f"among values and challenges; {entry['shape']}: kernel {entry['ms']} ms, plain {entry['plain_ms']} ms, "
+            f"bound {entry['bound_ms']} ms by {entry['bound_by']} ({nbytes} B; {outputs} outputs x "
+            f"{count['sm_clocks']} SM clocks, set by {count['limb']}: {entry['ops_ms']} ms), "
+            f"{entry['bound_ms'] / entry['ms']:.1%} of it; first fold {first['shape']}: kernel {first['ms']} ms, "
+            f"plain {first['plain_ms']} ms, bound {first['bound_ms']} ms ({first['bound_ms'] / first['ms']:.1%}); "
+            f"ptxas {entry['ptxas']}; {count['issued']} instructions an output ({count['ALU']} ALU pipe, "
+            f"{count['FMA']} IMAD)")
+        results[name] = entry
+        del matrix, points, r0
+        torch.cuda.empty_cache()
+    return results
+
+
+def wide_field_phases(dev, pinned) -> dict:
+    """Phases 4c and 5b: v1 over Goldilocks and Mersenne61 through
+    ``Prover(F, device=dev)``.  4c: NOP at 2^16 and 2^20 steps and the
+    wide-value guest (tests/torch_wide_guest.py, its code in the pin) in
+    each field, equal to the pins made by zigz_tpu's host path and verified
+    Accept by the port; E1 launched once a variable, K1 once and K2 once a
+    level.  5b, the slice's full-width run: NOP at 2^22 steps in each
+    field, two passes in this process with equal bytes, Accept, total_s
+    and the phase split, and the peak device memory allocated and reserved.
+    Returns ``{"launches": {case: {"E1", "K1", "K2"}}, "full_width": {case:
+    figures}}``, the 2^22 cases in both."""
+    import torch
+
+    import zigz_tpu_torch as zt
+    from zigz_tpu_torch.ops import field64, keccak
+
+    def prove(field, program, max_steps):
+        keccak.LAUNCHES.update(leaves=0, merge=0)
+        field64.LAUNCHES.update(fold=0)
+        prover = zt.Prover(field, seed=0, device=dev)
+        data = zt.serialization.BinarySerializer(field).serialize(prover.prove(program, 0x1000, None, max_steps,
+                                                                               None, None))
+        counts = {"E1": field64.LAUNCHES["fold"], "K1": keccak.LAUNCHES["leaves"], "K2": keccak.LAUNCHES["merge"]}
+        v = prover.last_timings["num_vars"]
+        if counts != {"E1": v, "K1": 1, "K2": v}:
+            raise AssertionError(f"{field.MODULUS}: launches {counts} are not E1 {v}, K1 1, K2 {v}")
+        return data, prover, counts
+
+    def accept(field, data, program):
+        ser = zt.serialization.BinarySerializer(field)
+        verdict = zt.Verifier(field).verify(ser.deserialize(data), program)
+        if verdict != "Accept":
+            raise AssertionError(f"the port's proof over p = {field.MODULUS} was rejected: {verdict}")
+
+    out = {"launches": {}, "full_width": {}}
+    for name, cases in (
+            ("Goldilocks", ("v1-goldilocks-nop-2^16", "v1-goldilocks-nop-2^20", "v1-goldilocks-wide-values")),
+            ("Mersenne61", ("v1-mersenne61-nop-2^16", "v1-mersenne61-nop-2^20", "v1-mersenne61-wide-values"))):
+        field = getattr(zt.core.field, name)
+        for case in cases:
+            pin = pinned[case]
+            spec = pin["program"]
+            program = NOP * spec["count"] if spec["kind"] == "nop" else bytes.fromhex(spec["hex"])
+            data, prover, counts = prove(field, program, pin["max_steps"])
+            got = (prover.last_timings["num_steps"], len(data), sha(data))
+            if got != (pin["num_steps"], pin["bytes"], pin["sha256"]):
+                raise AssertionError(f"{case}: (steps, bytes, sha256) {got} differ from the pinned "
+                                     f"{(pin['num_steps'], pin['bytes'], pin['sha256'])}")
+            accept(field, data, program)
+            out["launches"][case] = counts
+            log(f"phase 4c {case}: p = {field.MODULUS}, steps {got[0]} sha256 {got[2][:16]} == pinned, {got[1]} B, "
+                f"Accept, launches {counts}, total_s {prover.last_timings['total_s']}")
+    keys = ("total_s", "execute_s", "witness_dev_s", "forest_s", "evals_s", "opens_s", "sumcheck_lasso_s",
+            "commitments_s", "forest_plan")
+    program = NOP * (1 << 22)
+    for name in ("Goldilocks", "Mersenne61"):
+        field = getattr(zt.core.field, name)
+        case = f"v1-{name.lower()}-nop-2^22"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        passes, first = [], None
+        for _ in range(2):
+            data, prover, counts = prove(field, program, 1 << 23)
+            passes.append((sha(data), len(data), counts, {k: prover.last_timings[k] for k in keys}))
+            first = first or data
+            del data
+        if passes[0][:3] != passes[1][:3]:
+            raise AssertionError(f"{case}: the two passes differ: {[p[:3] for p in passes]}")
+        peaks = {"allocated_B": torch.cuda.max_memory_allocated(dev), "reserved_B": torch.cuda.max_memory_reserved(dev)}
+        accept(field, first, program)
+        out["launches"][case] = passes[0][2]
+        out["full_width"][case] = dict(sha256=passes[0][0], bytes=passes[0][1], timings=[p[3] for p in passes],
+                                       peak=peaks)
+        log(f"phase 5b {case}: two passes sha256 {passes[0][0][:16]} equal, {passes[0][1]} B, Accept, launches "
+            f"{passes[0][2]}, peak device memory {peaks['allocated_B']} B allocated, {peaks['reserved_B']} B "
+            f"reserved")
+        for i, (_, _, _, t) in enumerate(passes):
+            log(f"  pass {i + 1}: " + " ".join(f"{k}={t[k]}" for k in keys)
+                + f" steps_per_s={(1 << 22) / t['total_s']}")
+        del first, prover
+    torch.cuda.empty_cache()
+    return out
 
 
 def build_report(build) -> dict:
@@ -988,6 +1247,21 @@ def main() -> int:
     log(f"phase 1 sass: K2 has {len(opcodes)} instructions, {perm_instr} of them integer ALU "
         f"({ {op: opcodes.count(op) for op in sorted(set(opcodes))} })")
 
+    # K1's and K2's whole bodies (one permutation and its framing a thread,
+    # straight line), counted at every address under the issue-slot and
+    # two-pipe model of the Poseidon2 kernels; K4 and K5 keep the count
+    # above over the INT32 lanes.  E1's two instantiations, one output a
+    # thread.
+    keccak_counts = {"leaves": issue_count(sass, "sha3_leaves_kernel"), "merge": issue_count(sass, "sha3_merge_kernel")}
+    e1_counts = {name: issue_count(sass, "mle_fold_u64_kernel", name) for name in ("Goldilocks", "Mersenne61")}
+    for name, count in (*keccak_counts.items(), *e1_counts.items()):
+        low, high = (3000, 12000) if name in keccak_counts else (10, 400)
+        if not low < count["issued"] < high:
+            raise AssertionError(f"implausible count {count['issued']} for {name} in its SASS")
+        log(f"phase 1 sass: {name} issues {count['issued']} instructions a thread, {count['ALU']} on the ALU pipe "
+            f"and {count['FMA']} IMAD on the FMA pipe ({count['opcodes']}): {count['sm_clocks']} SM clocks a "
+            f"thread, set by {count['limb']}")
+
     # The multiply-chain kernel's: every integer instruction of the function,
     # since each thread takes one element and runs each once.
     chain_opcodes = function_opcodes("field_mul_chain")
@@ -1077,14 +1351,26 @@ def main() -> int:
         check_hashlib(f"K2 n={n}", got, msg, torch.arange(n, device=dev))
     if err or merge_err:
         raise AssertionError(f"kernels disagree with their plain versions: K1 {err}, K2 {merge_err}")
+    def keccak_bound(key, hashes: int, nbytes: int) -> dict:
+        """K1's or K2's bound: the bytes against the hashes x the SM clocks
+        one thread of the kernel takes (its whole SASS); the superseded
+        count over the INT32 lanes is logged beside it."""
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = hashes * keccak_counts[key]["sm_clocks"] * clock_ms
+        log(f"phase 2 {key}: bound {max(bytes_ms, ops_ms)} ms from the whole SASS ({keccak_counts[key]['sm_clocks']} "
+            f"SM clocks a hash, set by {keccak_counts[key]['limb']}); superseded: {bound(hashes, nbytes)['bound_ms']} "
+            f"ms ({perm_instr} integer instructions of K2's first 4,096 over the INT32 lanes)")
+        return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    library_ms=None)
+
     results["leaves"] = dict(max_abs_err=err, shape=f"({43 << 20},) -> ({43 << 20}, 4)",
                              ms=event_ms(keccak.sha3_leaves, leaves_in, 20),
                              plain_ms=event_ms(keccak._sha3_leaves_plain, leaves_in, 2),
-                             **bound(43 << 20, (43 << 20) * (8 + 32)))
+                             **keccak_bound("leaves", 43 << 20, (43 << 20) * (8 + 32)))
     results["merge"] = dict(max_abs_err=merge_err, shape=f"({43 << 19}, 8) -> ({43 << 19}, 4)",
                             ms=event_ms(keccak.sha3_merge, merge_in, 20),
                             plain_ms=event_ms(keccak._sha3_merge_plain, merge_in, 2),
-                            **bound(43 << 19, (43 << 19) * (64 + 32)))
+                            **keccak_bound("merge", 43 << 19, (43 << 19) * (64 + 32)))
     del leaves_in, leaves_out, merge_in, merge_out
     torch.cuda.empty_cache()
 
@@ -1162,6 +1448,9 @@ def main() -> int:
             f"bound {r['bound_ms']} ms by {r['bound_by']}")
     # -- phase 2, Poseidon2: P1-P3 against their plain versions -------------
     results.update(poseidon2_kernel_phase(dev, max_sm_mhz, p2_count))
+
+    # -- phase 2c: E1, the 64-bit fold, against its plain version ------------
+    e1_results = field64_kernel_phase(dev, max_sm_mhz, e1_counts, kernels.log)
 
     def canonical(shape):
         """Random canonical int32."""
@@ -1327,6 +1616,9 @@ def main() -> int:
     log(f"  port timings: {timings(prover)}")
     del data, program
     torch.cuda.empty_cache()
+
+    # -- phases 4c and 5b: v1 over Goldilocks and Mersenne61 -----------------
+    wide_launches = wide_field_phases(dev, pinned)
 
     # -- phase 1, Z1's generated kernels: wait for them -----------------------
     t0 = time.perf_counter()
@@ -1851,6 +2143,26 @@ def main() -> int:
         **{k: results["p2_leaves"][k] for k in measured}, "inlined_in": ["P1", "P2", "P3"],
         "measured_as": "P1: one permutation per thread",
         "instructions_a_permutation": {k: p2_count[k] for k in ("issued", "ALU", "FMA", "sm_clocks", "limb")}})
+    # E1, the 64-bit fold: no TPU kernel (zigz_tpu evaluates these fields
+    # with object-dtype integers on the host).  Launches from the
+    # Goldilocks v1 2^22 prove (the slice's full-width run), every wide
+    # prove beside them; the measurements are Goldilocks', Mersenne61's
+    # beside them.  K1 and K2 gain their launches on the wide proves.
+    wide = wide_launches["launches"]
+    for entry, tag in zip(kernels_line["kernels"][:2], ("K1", "K2")):
+        entry["launches_wide_fields"] = {case: counts[tag] for case, counts in wide.items()}
+    gold, m61 = e1_results["Goldilocks"], e1_results["Mersenne61"]
+    kernels_line["kernels"].append({
+        "name": "mle_fold_u64 (E1)", "route": "cuda", "source": "zigz_tpu_torch/csrc/field64_kernels.cu",
+        "replaces": "none: zigz_tpu/poly/multilinear.py:45,53 (object-dtype host evaluation, p >= 2^31) and "
+                    "zigz_tpu/ops/mle.py:98 _batch_eval_lsb_jit (jnp, p < 2^31)",
+        "tpu_kernel": None, "launches": wide["v1-goldilocks-nop-2^22"]["E1"],
+        **{k: gold[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+                                "first_fold", "instructions_an_output", "ptxas")},
+        "launches_wide_fields": {case: counts["E1"] for case, counts in wide.items()},
+        "mersenne61": {k: m61[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "shape",
+                                           "first_fold", "instructions_an_output", "ptxas")},
+        "full_width_proves": wide_launches["full_width"]})
     log(json.dumps({"torch_ops": torch_ops}))
     log(json.dumps(kernels_line))
     log(info["nvidia_smi"])

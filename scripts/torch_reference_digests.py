@@ -17,9 +17,11 @@ their memory back.  ``--only`` refreshes some entries and keeps the rest.
 
 A case names its program as data: ``{"kind": "nop", "count": N}`` is N
 NOP instructions at 0x1000; ``{"kind": "fixture", "name": ..., "tape":
-[...]}`` is a guest ELF under tests/fixtures/ with its input tape.  A case
-over another field than BabyBear names it (``FIELDS``), and its entry
-carries the field's name under ``"field"``.
+[...]}`` is a guest ELF under tests/fixtures/ with its input tape;
+``{"kind": "code", "hex": ...}`` is raw code at 0x1000, held in the entry
+itself (the wide-value guest of tests/torch_wide_guest.py).  A case over
+another field than BabyBear names it (``FIELDS``), and its entry carries
+the field's name under ``"field"``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "zigz_tpu_torch", "testdata", "proof_digests.json")
 FIB = {"kind": "fixture", "name": "fibonacci_program.bin"}
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+import torch_wide_guest  # noqa: E402  (the port's assembler; no JAX)
+
+WIDE = {"kind": "code", "hex": torch_wide_guest.program().hex()}
 
 # name -> (protocol version, program, max_steps, size class)
 CASES = {
@@ -60,9 +66,17 @@ CASES = {
     "v3-nop-2^20": (3, {"kind": "nop", "count": 1 << 20}, 1 << 21, "large"),
     "v1-koalabear-nop-2^16": (1, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
     "v1-mersenne31-nop-2^16": (1, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
+    "v1-goldilocks-nop-2^16": (1, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
+    "v1-goldilocks-nop-2^20": (1, {"kind": "nop", "count": 1 << 20}, 1 << 21, "large"),
+    "v1-mersenne61-nop-2^16": (1, {"kind": "nop", "count": 1 << 16}, 1 << 17, "large"),
+    "v1-mersenne61-nop-2^20": (1, {"kind": "nop", "count": 1 << 20}, 1 << 21, "large"),
+    "v1-goldilocks-wide-values": (1, WIDE, 1 << 16, "small"),
+    "v1-mersenne61-wide-values": (1, WIDE, 1 << 16, "small"),
 }
 # case name -> its field, a name of zigz_tpu.core.field; BabyBear elsewhere
-FIELDS = {"v1-koalabear-nop-2^16": "KoalaBear", "v1-mersenne31-nop-2^16": "Mersenne31"}
+FIELDS = {"v1-koalabear-nop-2^16": "KoalaBear", "v1-mersenne31-nop-2^16": "Mersenne31",
+          **{f"v1-{name.lower()}-{case}": name for name in ("Goldilocks", "Mersenne61")
+             for case in ("nop-2^16", "nop-2^20", "wide-values")}}
 
 
 def prove_case(name: str) -> dict:
@@ -75,6 +89,8 @@ def prove_case(name: str) -> dict:
     entry, segments, tape = 0x1000, None, program_spec.get("tape")
     if program_spec["kind"] == "nop":
         program = bytes([0x13, 0x00, 0x00, 0x00]) * program_spec["count"]
+    elif program_spec["kind"] == "code":
+        program = bytes.fromhex(program_spec["hex"])
     else:
         with open(os.path.join(ROOT, "tests", "fixtures", program_spec["name"]), "rb") as f:
             program = f.read()

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from zigz_tpu_torch import BabyBear, Prover, Verifier, elf, serialization
+from zigz_tpu_torch import BabyBear, Goldilocks, Mersenne61, Prover, Verifier, elf, serialization
 from zigz_tpu_torch.commitments.device_forest import DeviceMerkleForest
 from zigz_tpu_torch.commitments.ligero import ligero_commit_mixed
 from zigz_tpu_torch.core.ext4 import ext_from_ints
@@ -27,7 +27,7 @@ from zigz_tpu_torch.core.hash import FiatShamirTranscript
 from zigz_tpu_torch.lookups import pipeline_lasso
 from zigz_tpu_torch.commitments import ligero
 from zigz_tpu_torch.core import poseidon2 as p2_host
-from zigz_tpu_torch.ops import ext4_dev, keccak, ligero_dev, poseidon2, witness_dev, zerocheck_dev_ext
+from zigz_tpu_torch.ops import ext4_dev, field64, keccak, ligero_dev, poseidon2, witness_dev, zerocheck_dev_ext
 from zigz_tpu_torch.proofs.zerocheck import ZerocheckExtProver, count_zerocheck_proofs
 
 pytestmark = pytest.mark.cuda
@@ -67,6 +67,38 @@ def test_kernels_match_plain_and_hashlib(cuda, n):
         data = int(vals[i]).to_bytes(8, "little", signed=True)
         assert leaves[i].cpu().numpy().tobytes() == hashlib.sha3_256(data).digest()
         assert merged[i].cpu().numpy().tobytes() == hashlib.sha3_256(msg[i].numpy().tobytes()).digest()
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (3, 6), (5, 510), (43, 1 << 12)])
+@pytest.mark.parametrize("p", [field64.GOLDILOCKS_P, field64.MERSENNE61_P])
+def test_e1_matches_its_plain_version(cuda, p, shape):
+    """E1 against ``_fold_lsb_u64_plain`` on the same inputs, 0, 1, p - 1
+    and 2^63 (Goldilocks: a negative int64) among values and challenges."""
+    rng = np.random.default_rng(shape[1])
+    vals = rng.integers(0, 1 << 63, size=shape, dtype=np.uint64) % np.uint64(p)
+    vals.reshape(-1)[:3] = [0, 1, p - 1][: vals.size]
+    if p == field64.GOLDILOCKS_P:
+        vals.reshape(-1)[-1] = 1 << 63
+    r = rng.integers(0, 1 << 63, size=shape[0], dtype=np.uint64) % np.uint64(p)
+    r[: min(3, r.size)] = [p - 1, 0, 1][: min(3, r.size)]
+    x, rr = torch.from_numpy(vals.view(np.int64)), torch.from_numpy(r.view(np.int64))
+    before = field64.LAUNCHES["fold"]
+    got = field64.fold_lsb_u64(x.to(cuda), rr.to(cuda), p)
+    torch.cuda.synchronize()
+    assert field64.LAUNCHES["fold"] == before + 1
+    assert torch.equal(got.cpu(), field64._fold_lsb_u64_plain(x, rr, p))
+
+
+@pytest.mark.parametrize("field", [Goldilocks, Mersenne61])
+def test_wide_field_prove_on_the_card_matches_its_pin(cuda, field):
+    case = PINNED["v1-goldilocks-nop-2^16" if field is Goldilocks else "v1-mersenne61-nop-2^16"]
+    program = bytes([0x13, 0, 0, 0]) * case["program"]["count"]
+    field64.LAUNCHES["fold"] = 0
+    prover = Prover(field, seed=0)  # the default device
+    data = serialization.BinarySerializer(field).serialize(prover.prove(program, 0x1000, None, case["max_steps"]))
+    assert (len(data), hashlib.sha256(data).hexdigest()) == (case["bytes"], case["sha256"])
+    assert field64.LAUNCHES["fold"] == 16
+    assert Verifier(field).verify(serialization.BinarySerializer(field).deserialize(data), program) == "Accept"
 
 
 def test_forest_on_the_card_matches_the_cpu(cuda):

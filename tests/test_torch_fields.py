@@ -3,9 +3,11 @@
 The port's v1 proofs over KoalaBear, Mersenne31 and F17 are byte-identical
 to zigz_tpu's (its host path on the CPU) and Accept under both verifiers,
 crossing as serialized bytes; the device witness and the batched
-evaluation reduce mod the field's own modulus.  Goldilocks and Mersenne61
-(2^31 and above) stay refused, with the reason in the message, while
-zigz_tpu proves them on its host path.  Integers throughout: tolerance zero.
+evaluation reduce mod the field's own modulus.  v1 over Goldilocks and
+Mersenne61 is tests/test_torch_wide_fields.py's; here v2-v4 and a sharded
+prove refuse those two, as zigz_tpu does, and a modulus of 2^31 or more
+outside them is refused with the reason.  Integers throughout: tolerance
+zero.
 """
 
 import numpy as np
@@ -76,18 +78,43 @@ def test_v1_proof_matches_zigz_tpu(field_name, program_name):
     assert zt.Verifier(PF).verify(zt.serialization.BinarySerializer(PF).deserialize(data), program) == "Accept"
 
 
+@pytest.mark.parametrize("version", [2, 3, 4])
 @pytest.mark.parametrize("field_name", WIDE)
-def test_fields_from_2_31_are_refused_with_the_reason(field_name):
-    """zigz_tpu proves these on its host path; the port's device witness
-    (u32 words) and int64 products cannot hold them, and it says so."""
+def test_v2_to_v4_refuse_the_wide_fields(field_name, version):
+    """As zigz_tpu: v1 proves over Goldilocks and Mersenne61, v3 and v4 are
+    refused when the prover is made, v2 when it proves."""
     F, PF = getattr(ref_field, field_name), getattr(port_field, field_name)
-    program, entry, segments, tape = PROGRAMS["add"]()
-    data = _reference_proof(F, program, entry, segments, tape)
-    assert Verifier(F).verify(BinarySerializer(F).deserialize(data), program) == VerificationResult.Accept
-    with pytest.raises(ValueError, match=r"not below 2\^31.*u32 words.*int64"):
-        zt.Prover(PF, device="cpu")
+    program, entry, segments, tape = PROGRAMS["nop4"]()
+    if version > 2:
+        for make in (lambda: ReferenceProver(F, protocol_version=version),
+                     lambda: zt.Prover(PF, device="cpu", protocol_version=version)):
+            with pytest.raises(ValueError, match="BabyBear-only"):
+                make()
+        return
+    for prover in (ReferenceProver(F, protocol_version=2), zt.Prover(PF, device="cpu", protocol_version=2)):
+        with pytest.raises(ValueError, match="use protocol_version=1 for this field"):
+            prover.prove(program, entry, None, 1 << 16, segments, tape)
+
+
+@pytest.mark.parametrize("field_name", WIDE)
+def test_sharded_prove_refuses_the_wide_fields(field_name):
+    class _Rank:
+        device = torch.device("cpu")
+
+    with pytest.raises(ValueError, match="sharded prove is BabyBear-only"):
+        zt.Prover(getattr(port_field, field_name), device="cpu", group=_Rank())
+
+
+@pytest.mark.parametrize("modulus", [(1 << 31) + 11, (1 << 61) + 15, (1 << 64) - 59])
+def test_a_modulus_from_2_31_outside_the_two_fields_is_refused(modulus):
+    """Neither the int32 witness nor the u64 one with kernel E1 takes it,
+    and the message says so; the int64 folds keep their own limit."""
+    with pytest.raises(ValueError, match=r"not below 2\^31 and is neither Goldilocks.*nor Mersenne61"):
+        zt.Prover(port_field.Field(modulus), device="cpu")
     with pytest.raises(ValueError, match=r"not below 2\^31"):
-        mle.check_modulus(PF.MODULUS)
+        mle.check_modulus(modulus)
+    for name in WIDE:
+        assert mle.check_device_modulus(getattr(port_field, name).MODULUS) == getattr(port_field, name).MODULUS
 
 
 @pytest.mark.parametrize("version", [2, 3, 4])

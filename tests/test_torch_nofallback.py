@@ -15,7 +15,9 @@
   algebra raises ``TraceError``, and there is no width gate.
 * The Poseidon2 wrappers (P1-P3: ``p2_leaves``, ``p2_merge``,
   ``p2_absorb``; ``permute_device``) on a CUDA tensor build the kernels or
-  raise: no nvcc, a failing nvcc, a library that does not load.
+  raise: no nvcc, a failing nvcc, a library that does not load.  So do the
+  64-bit fold's (E1: ``field64.fold_lsb_u64``, ``batch_eval_lsb_u64`` and
+  ``mle.batch_eval_lsb`` over Goldilocks and Mersenne61).
 * A device advice twin or the Poseidon2 column sponge that fails makes
   the commit and the prove raise; both commits of a v2, v3 and v4 prove take
   the ``"stream-dev"`` path.
@@ -130,12 +132,28 @@ def test_build_raises_when_the_library_does_not_load(fresh_build, monkeypatch):
 
 def test_build_hashes_the_sources():
     units, headers = _build._sources()
-    assert [p.name for p in units] == ["field_kernels.cu", "ligero_kernels.cu", "poseidon2_kernels.cu",
-                                       "sha3_kernels.cu", "zerocheck_kernels.cu"]
-    assert [p.name for p in headers] == ["babybear.cuh", "dag_round.cuh", "keccak.cuh", "poseidon2.cuh"]
+    assert [p.name for p in units] == ["field64_kernels.cu", "field_kernels.cu", "ligero_kernels.cu",
+                                       "poseidon2_kernels.cu", "sha3_kernels.cu", "zerocheck_kernels.cu"]
+    assert [p.name for p in headers] == ["babybear.cuh", "dag_round.cuh", "field64.cuh", "keccak.cuh",
+                                         "poseidon2.cuh"]
     path = _build._library_path(units, headers)
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("header", ["field64.cuh", "keccak.cuh"])
+def test_library_hash_covers_each_header(header, tmp_path):
+    """An edit of a header that only a unit includes (field64.cuh, E1's
+    arithmetic) names another library, so the edit is rebuilt."""
+    units, headers = _build._sources()
+    copies = []
+    for path in headers:
+        copy = tmp_path / path.name
+        copy.write_bytes(path.read_bytes() + (b"\n// edited\n" if path.name == header else b""))
+        copies.append(copy)
+    assert _build._library_path(units, copies) != _build._library_path(units, headers)
+
+
 
 
 class _OnCuda(torch.Tensor):
@@ -209,6 +227,31 @@ def test_poseidon2_wrappers_on_cuda_build_the_kernels_or_raise(entry, library, f
             state = torch.zeros((16, 4), dtype=torch.int32).as_subclass(_OnCuda)
             poseidon2.p2_absorb(state, torch.zeros((8, 4), dtype=torch.int32).as_subclass(_OnCuda))
     assert (dict(poseidon2.LAUNCHES), dict(poseidon2.PERMUTATIONS)) == before
+
+
+@pytest.mark.parametrize("library", sorted(_UNBUILDABLE))
+@pytest.mark.parametrize("entry", ["fold_lsb_u64", "batch_eval_lsb_u64", "mle.batch_eval_lsb"])
+def test_field64_wrappers_on_cuda_build_the_kernel_or_raise(entry, library, fresh_build, monkeypatch):
+    """E1's wrappers on a CUDA tensor raise where the library cannot be
+    built or loaded; they never fold with the plain version there, and
+    count no launch."""
+    from zigz_tpu_torch.ops import field64, mle
+
+    body, match = _UNBUILDABLE[library]
+    nvcc = None if body is None else _fake_nvcc(fresh_build, body)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: nvcc)
+    values = torch.zeros((2, 4), dtype=torch.int64).as_subclass(_OnCuda)
+    before = dict(field64.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError, match=match):
+        if entry == "fold_lsb_u64":
+            field64.fold_lsb_u64(values, torch.zeros(2, dtype=torch.int64).as_subclass(_OnCuda), field64.GOLDILOCKS_P)
+        elif entry == "batch_eval_lsb_u64":
+            points = torch.zeros((2, 2), dtype=torch.int64).as_subclass(_OnCuda)
+            field64.batch_eval_lsb_u64(values, points, field64.MERSENNE61_P)
+        else:
+            points = torch.zeros((2, 2), dtype=torch.int64).as_subclass(_OnCuda)
+            mle.batch_eval_lsb(values, points, field64.GOLDILOCKS_P)
+    assert field64.LAUNCHES == before
 
 
 def test_poseidon2_permutation_and_sponge_on_cuda_reach_the_kernel(fresh_build, monkeypatch):

@@ -102,18 +102,18 @@ def test_port_has_no_size_gate():
 
 
 def test_protocols_and_fields_are_refused_as_zigz_tpu_refuses():
-    """v1 takes every field below 2^31 (tests/test_torch_fields.py); v3 and
+    """v1 takes every field below 2^31 and Goldilocks and Mersenne61
+    (tests/test_torch_fields.py, tests/test_torch_wide_fields.py); v3 and
     v4 refuse another field when the prover is made, v2 when it proves, as
-    zigz_tpu does; a field of 2^31 and above is refused with the reason; a
-    version beyond v4 is refused."""
+    zigz_tpu does; any other modulus of 2^31 and above is refused with the
+    reason; a version beyond v4 is refused."""
     from zigz_tpu.core.field import KoalaBear as RefKoalaBear
-    from zigz_tpu_torch.core.field import Goldilocks, KoalaBear, Mersenne31, Mersenne61
+    from zigz_tpu_torch.core.field import Field, Goldilocks, KoalaBear, Mersenne31, Mersenne61
 
-    for field in (KoalaBear, Mersenne31):
+    for field in (KoalaBear, Mersenne31, Goldilocks, Mersenne61):
         assert Prover(field, device="cpu").F is field
-    for field in (Goldilocks, Mersenne61):
-        with pytest.raises(ValueError, match=r"not below 2\^31"):
-            Prover(field, device="cpu")
+    with pytest.raises(ValueError, match=r"not below 2\^31"):
+        Prover(Field((1 << 61) + 15), device="cpu")
     for version in (3, 4):
         assert Prover(F, device="cpu", protocol_version=version).protocol_version == version
         for field in (Goldilocks, KoalaBear):

@@ -27,7 +27,13 @@ lanes and a tunnel's latency and are not ported.  Its memory plan is:
 
 At 2^22 steps and below nothing is freed and nothing is grouped: every
 level stays on the device (43 * (2^23 - 1) * 32 bytes, about 11.5 GB, at
-2^22).  Roots, openings and evaluations are byte-identical to
+2^22).
+
+The witness is int32 words below 2^31 and int64 words holding the
+canonical value's u64 bits over the two 64-bit fields (ops/witness_dev.py,
+``mle.WIDE_MODULI``); K1 hashes each value's 8 little-endian bytes either
+way, and ``eval_backend`` folds the int64 words with kernel E1
+(ops/field64.py).  Roots, openings and evaluations are byte-identical to
 SimpleMerkleTree and to the JAX forest under every plan
 (tests/test_torch_forest.py).
 
@@ -75,12 +81,14 @@ DISCARD_DIGESTS = 1 << 28
 # A forest with more leaf digests than this is built in groups of whole
 # trees whose leaf level holds at most GROUP_LEAF_DIGESTS (16 GiB).  A
 # group's peak is its leaf level, the int64 leaf values while K1 reads them
-# (a quarter of it, 4 GiB) or its level 1 (half of it, 8 GiB): 24 GiB.
-# With the kept levels (< 16 GiB) and the int32 witness (5.4 GiB at 2^25
-# steps) the build peaks below 46 GiB, which leaves a third of the card to
-# the caching allocator's fragmentation and to what the witness build left
-# cached.  At 2^22 steps the leaf level is 43 * 2^22 = 2^27.4 digests: no
-# level is freed and there is one group.  At 2^23: D = 1; at 2^24: D = 2,
+# (a quarter of it, 4 GiB; none over a 64-bit field, whose int64 witness K1
+# reads as it lies) or its level 1 (half of it, 8 GiB): 24 GiB.  With the
+# kept levels (< 16 GiB) and the witness at 2^25 steps (int32: 5.4 GiB;
+# int64 over a 64-bit field: 43 * 2^25 * 8 B = 10.75 GiB) the build peaks
+# below 46 GiB, or 51 GiB over a 64-bit field, which leaves a third of the
+# card to the caching allocator's fragmentation and to what the witness
+# build left cached.  At 2^22 steps the leaf level is 43 * 2^22 = 2^27.4
+# digests: no level is freed and there is one group.  At 2^23: D = 1; at 2^24: D = 2,
 # groups of 32 trees; at 2^25: D = 3, groups of 16 trees.
 GROUP_LEAF_DIGESTS = 1 << 29
 
@@ -102,7 +110,9 @@ class _Sha3Levels:
 
     @staticmethod
     def leaves(values: torch.Tensor) -> torch.Tensor:
-        # int64 only for the group at hand: K1 reads 8-byte messages
+        # K1 reads 8-byte messages: an int32 witness is widened for the group
+        # at hand only; an int64 one (a 64-bit field) is read as it lies,
+        # with no copy (``to`` returns the tensor itself).
         return keccak.sha3_leaves(values.reshape(-1).to(torch.int64)).view(values.shape[0], -1, 4)
 
     @staticmethod
@@ -146,18 +156,20 @@ _HASHERS = {"sha3": _Sha3Levels, "poseidon2": _Poseidon2Levels}
 
 class DeviceMerkleForest:
     def __init__(self, F, lo: torch.Tensor, hash_mode: str = "sha3", group=None):
-        """``lo``: (B, N) int32 canonical witness on the device, N = 2^height;
+        """``lo``: (B, N) canonical witness on the device, N = 2^height, int32
+        below 2^31 and int64 u64 bits over a field of ``mle.WIDE_MODULI``;
         under a ``group`` this rank's contiguous (B, N / D) slice of it.
 
         Builds the forest group by group: one K1 launch for a group's
         leaves, then one K2 launch per level (``"sha3"``), or ``p2_leaves``
         and one ``p2_merge`` per level (``"poseidon2"``).  ``self.levels[k]``
         is level k of all B trees, or None for a freed level k < D."""
-        mle.check_modulus(F.MODULUS)
         if hash_mode == "poseidon2" and F.MODULUS != bb.P:
             raise ValueError(f"the Poseidon2 forest is BabyBear-only (p = {bb.P}), not {F.MODULUS}")
-        if lo.dtype != torch.int32 or lo.dim() != 2:
-            raise ValueError(f"expected a (B, N) int32 tensor, got {lo.dtype} {tuple(lo.shape)}")
+        dtype = torch.int64 if mle.is_wide(mle.check_device_modulus(F.MODULUS)) else torch.int32
+        if lo.dtype != dtype or lo.dim() != 2:
+            raise ValueError(f"expected a (B, N) {dtype} tensor for p = {F.MODULUS}, got {lo.dtype} "
+                             f"{tuple(lo.shape)}")
         B, n_loc = lo.shape
         ranks = dist.world_size(group)
         if n_loc <= 0 or n_loc & (n_loc - 1):
@@ -235,11 +247,14 @@ class DeviceMerkleForest:
     def eval_backend(self, matrix, points: np.ndarray) -> np.ndarray:
         """Evaluate the B witness MLEs at per-row points (B, v) canonical
         uint64, from the device-resident witness; ``matrix`` is ignored (the
-        prover passes None).  Returns (B,) canonical uint64."""
+        prover passes None).  Returns (B,) canonical uint64 (the int64
+        results' bits: a Goldilocks value may be 2^63 or more)."""
         pts = torch.from_numpy(np.ascontiguousarray(points, dtype=np.uint64).view(np.int64))
         pts = pts.to(self.lo.device)
-        # The int32 witness goes in as it is: the first fold's products with
-        # the int64 points promote to int64, and no int64 copy of it is made.
+        # The witness goes in as it is.  An int32 one: the first fold's
+        # products with the int64 points promote to int64, and no int64 copy
+        # of it is made.  An int64 one (a 64-bit field): E1, one launch a
+        # variable, the points as u64 bits.
         # Under a group of ranks: the local folds down to one value a row,
         # one all-gather of (B, D), the last log2 D folds on every rank.
         v_loc = self.local_height
@@ -248,7 +263,7 @@ class DeviceMerkleForest:
         if v_loc < self.height:
             tops = dist.all_gather_cat(self.group, values[:, None], 1)
             values = mle.batch_eval_lsb(tops, pts[:, v_loc:], p)
-        return values.cpu().numpy().astype(np.uint64)
+        return values.cpu().numpy().view(np.uint64)
 
     def _recompute_siblings(self, k: int, rows: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
         """Level k < D of one-node "trees": node ``nodes[i]`` of tree
@@ -305,7 +320,7 @@ class DeviceMerkleForest:
         host = torch.cat([local[:n_low]] + tops + [local[n_low:]]).cpu().numpy()
 
         sib = host[: height * B * words].reshape(height, B, words).astype(hasher.word_type)
-        leaf_values = host[height * B * words :]
+        leaf_values = host[height * B * words :].view(np.uint64)  # u64 bits of an int64 witness
         is_right = ((idx[None, :] >> shifts) & 1).astype(bool)  # (height, B)
         return [
             OpeningProof(

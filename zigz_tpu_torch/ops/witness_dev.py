@@ -12,13 +12,17 @@ in numpy, and the device rebuilds the witness rows:
 * instruction and memory rows padded with zero, pc padded with its last
   value.
 
-Output: (43, 2^v) int32 canonical values in the commitment row order of
+Output: (43, 2^v) canonical values in the commitment row order of
 constraints/witness.py (0 = pc, 1..32 = x0..x31, 33..39 = opcode, rd, rs1,
 rs2, funct3, funct7, imm, 40..42 = mem addr, value, is_read).
 
-The modulus ``p`` is the field's (``F.MODULUS``, BabyBear's by default) and
-must lie below 2^31 (:func:`mle.check_modulus`): the values are stored as int32
-words and reduced in int64, where (hi mod p) (2^32 mod p) < p^2 < 2^62.
+The modulus ``p`` is the field's (``F.MODULUS``, BabyBear's by default).
+Below 2^31 (:func:`mle.check_modulus`) the values are int32 words, reduced
+in int64, where (hi mod p) (2^32 mod p) < p^2 < 2^62.  Over the two 64-bit
+fields (``mle.WIDE_MODULI``, Goldilocks and Mersenne61) they are int64
+words holding the canonical value's u64 bits, a Goldilocks value of 2^63
+or more a negative int64 (:func:`_mod_u64_wide`); the group path
+(``_slice_columns``) stays BabyBear-only, as the sharded prove is.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 
 from ..device import resolve_device
 from .babybear import P
-from .mle import check_modulus
+from . import mle
+from .field64 import GOLDILOCKS_P, from_halves
 
 __all__ = ["pack_trace_columns", "build_witness", "from_numpy", "check_slice_width", "NUM_ROWS"]
 
@@ -80,6 +85,7 @@ def pack_trace_columns(trace, initial_regs, num_vars: int, p: int = P) -> dict:
     has_mem = np.asarray(cols["mem_flag"]) != 0
     mem_addr_lo, mem_addr_hi = split64(pad_zero(np.where(has_mem, cols["mem_addr"], 0).astype(np.uint64)))
     mem_val_lo, mem_val_hi = split64(pad_zero(np.where(has_mem, cols["mem_val"], 0).astype(np.uint64)))
+    regs = np.asarray(initial_regs, dtype=np.uint64) % np.uint64(p)  # exact on uint64
     return {
         "pc_lo": pc_lo, "pc_hi": pc_hi,
         # Instruction fields fit u8: opcode < 128, registers < 32, funct7 < 128.
@@ -95,15 +101,18 @@ def pack_trace_columns(trace, initial_regs, num_vars: int, p: int = P) -> dict:
         "mem_flag": pad_zero(np.asarray(cols["mem_flag"]).astype(np.uint8)),
         "mem_addr_lo": mem_addr_lo, "mem_addr_hi": mem_addr_hi,
         "mem_val_lo": mem_val_lo, "mem_val_hi": mem_val_hi,
-        "initial_regs": (np.asarray(initial_regs, dtype=np.uint64) % np.uint64(p)).astype(np.uint32),
+        "initial_regs": regs if mle.is_wide(p) else regs.astype(np.uint32),
     }
 
 
 def _upload(packed: dict, device: torch.device) -> dict:
-    """numpy columns -> int64 device tensors (uint32 travels as int32 bits)."""
+    """numpy columns -> int64 device tensors (uint32 travels as int32 bits,
+    uint64 as int64 bits)."""
     out = {}
     for key, arr in packed.items():
-        if key in _U32_COLUMNS:
+        if arr.dtype == np.uint64:
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr).view(np.int64)).to(device)
+        elif key in _U32_COLUMNS:
             t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32)).to(device)
             out[key] = t.to(torch.int64) & 0xFFFFFFFF
         else:
@@ -115,6 +124,21 @@ def _mod_u64(lo: torch.Tensor, hi: torch.Tensor, p: int) -> torch.Tensor:
     """(lo + 2^32 hi) mod p of the unsigned u64 value, from int64 halves in
     [0, 2^32).  (hi % p) * (2^32 % p) < p^2 < 2^62, plus lo % p < p."""
     return (lo % p + (hi % p) * ((1 << 32) % p)) % p
+
+
+def _mod_u64_wide(lo: torch.Tensor, hi: torch.Tensor, p: int) -> torch.Tensor:
+    """(lo + 2^32 hi) mod p of the unsigned u64 value, from int64 halves in
+    [0, 2^32), for a field of ``mle.WIDE_MODULI`` -> int64 holding the
+    canonical value's u64 bits.  Exact for values of 2^63 and more: no
+    int64 product wraps and no ``%`` sees a negative int64.
+
+    Goldilocks: v >= p only when hi = 2^32 - 1 and lo >= 1, and then
+    v - p = lo - 1.  Mersenne61: (v & p) + (v >> 61), then one conditional
+    subtract; both terms come straight from the halves."""
+    if p == GOLDILOCKS_P:
+        return torch.where((hi == 0xFFFFFFFF) & (lo >= 1), lo - 1, from_halves(hi, lo))
+    v = (((hi & ((1 << 29) - 1)) << 32) | lo) + (hi >> 29)  # < 2^61 + 8
+    return torch.where(v >= p, v - p, v)
 
 
 def _slice_columns(packed: dict, first: int, count: int, p: int) -> dict:
@@ -141,28 +165,32 @@ def _slice_columns(packed: dict, first: int, count: int, p: int) -> dict:
 
 
 def build_witness(trace, initial_regs, num_vars: int, device, group=None, p: int = P) -> torch.Tensor:
-    """Native columnar trace -> (43, 2^v) int32 witness on ``device``,
-    canonical mod ``p`` (the field's modulus, below 2^31).
+    """Native columnar trace -> (43, 2^v) witness on ``device``, canonical
+    mod ``p`` (the field's modulus): int32 below 2^31, int64 u64 bits over a
+    field of ``mle.WIDE_MODULI``.
 
     Under a ``group`` (parallel/multihost.py ``TraceGroup``) every rank
     builds its CONTIGUOUS columns ``[rank * N/D, (rank + 1) * N/D)`` only and
     returns that (43, N/D) slice; a slice of fewer than 2 steps raises."""
     device = resolve_device(device)
-    check_modulus(p)
+    wide = mle.is_wide(mle.check_device_modulus(p))
     packed = pack_trace_columns(trace, initial_regs, num_vars, p)
     n = 1 << num_vars
     if group is not None:
+        if wide:
+            raise ValueError(f"the group path of the witness takes fields below 2^31, not p = {p}")
         if group.device != device:
             raise ValueError(f"group on {group.device}, witness on {device}")
         n = check_slice_width(n, group.world_size)
         packed = _slice_columns(packed, group.rank * n, n, p)
     d = _upload(packed, device)
 
+    mod_u64 = _mod_u64_wide if wide else _mod_u64
     imm_hi = (d["imm_lo"] >> 31) * 0xFFFFFFFF  # sign extension of bit 31
-    wr_val = _mod_u64(d["wr_val_lo"], d["wr_val_hi"], p)
+    wr_val = mod_u64(d["wr_val_lo"], d["wr_val_hi"], p)
 
-    out = torch.empty((NUM_ROWS, n), dtype=torch.int32, device=device)
-    out[0] = _mod_u64(d["pc_lo"], d["pc_hi"], p)
+    out = torch.empty((NUM_ROWS, n), dtype=torch.int64 if wide else torch.int32, device=device)
+    out[0] = mod_u64(d["pc_lo"], d["pc_hi"], p)
 
     # Registers: row r at step t holds the value of the last write to r at a
     # step <= t, or r's initial value when there was none; x0 is zero.
@@ -180,10 +208,10 @@ def build_witness(trace, initial_regs, num_vars: int, device, group=None, p: int
     out[1] = 0
 
     for row, key in enumerate(("opcode", "rd", "rs1", "rs2", "funct3", "funct7"), start=33):
-        out[row] = d[key] % p
-    out[39] = _mod_u64(d["imm_lo"], imm_hi, p)
-    out[40] = _mod_u64(d["mem_addr_lo"], d["mem_addr_hi"], p)
-    out[41] = _mod_u64(d["mem_val_lo"], d["mem_val_hi"], p)
+        out[row] = d[key] if wide else d[key] % p  # below 2^7: a wide p never reduces them
+    out[39] = mod_u64(d["imm_lo"], imm_hi, p)
+    out[40] = mod_u64(d["mem_addr_lo"], d["mem_addr_hi"], p)
+    out[41] = mod_u64(d["mem_val_lo"], d["mem_val_hi"], p)
     out[42] = d["mem_flag"] == 1
     return out
 
@@ -197,15 +225,19 @@ def check_slice_width(n: int, world_size: int) -> int:
     return per
 
 
-def from_numpy(lo_u32: np.ndarray, device, p: int = P) -> torch.Tensor:
-    """A (43, 2^v) uint32 witness from the host, canonical mod ``p`` (for
-    example the JAX package's ``np.asarray(build_witness_device(...))``) ->
-    the port's int32 tensor on ``device``."""
-    arr = np.ascontiguousarray(lo_u32)
+def from_numpy(matrix: np.ndarray, device, p: int = P) -> torch.Tensor:
+    """A (43, 2^v) witness from the host, canonical mod ``p``: uint32 below
+    2^31 (for example the JAX package's ``np.asarray(build_witness_device(...))``)
+    -> the port's int32 tensor on ``device``; uint64 over a field of
+    ``mle.WIDE_MODULI`` (``WitnessGenerator``'s matrix) -> its int64 tensor
+    of u64 bits."""
+    arr = np.ascontiguousarray(matrix)
     if not arr.flags.writeable:  # a JAX array's host view is read-only
         arr = arr.copy()
-    if arr.dtype != np.uint32 or arr.ndim != 2:
-        raise ValueError(f"expected a 2-D uint32 array, got {arr.dtype} {arr.shape}")
-    if arr.size and int(arr.max()) >= check_modulus(p):
+    wide = mle.is_wide(mle.check_device_modulus(p))
+    dtype = np.uint64 if wide else np.uint32
+    if arr.dtype != dtype or arr.ndim != 2:
+        raise ValueError(f"expected a 2-D {np.dtype(dtype)} array for p = {p}, got {arr.dtype} {arr.shape}")
+    if arr.size and int(arr.max()) >= p:  # the max of an unsigned array, exact
         raise ValueError("witness values must be canonical (< p)")
-    return torch.from_numpy(arr.view(np.int32)).to(resolve_device(device))
+    return torch.from_numpy(arr.view(np.int64 if wide else np.int32)).to(resolve_device(device))

@@ -82,14 +82,15 @@ class Prover:
                  use_native_vm: Optional[bool] = None, protocol_version: int = 1):
         if protocol_version not in (1, 2, 3, 4):
             raise ValueError(f"protocol_version={protocol_version}: expected 1, 2, 3 or 4")
-        # v1 runs over every field below 2^31, as zigz_tpu proves it;
-        # v2 raises at prove time (constraints/core_arg.py), v3 and v4 here,
-        # as zigz_tpu does.  Moduli of 2^31 and above do not fit the device
-        # witness's u32 words or its int64 products (mle.check_modulus).
+        # v1 runs over every field below 2^31 and over Goldilocks and
+        # Mersenne61, as zigz_tpu proves them (mle.check_device_modulus: an
+        # int32 witness below 2^31, u64 words and kernel E1 for the two
+        # 64-bit fields); v2 raises at prove time (constraints/core_arg.py),
+        # v3 and v4 here, as zigz_tpu does.
         if protocol_version in (3, 4) and F.MODULUS != bb.P:
             name = "Poseidon2 commitments" if protocol_version == 3 else "Ligero witness PCS"
             raise ValueError(f"protocol_version={protocol_version} ({name}) is BabyBear-only")
-        mle.check_modulus(F.MODULUS)
+        mle.check_device_modulus(F.MODULUS)
         if group is not None and F.MODULUS != bb.P:
             raise ValueError(f"a sharded prove is BabyBear-only (p = {bb.P}), not {F.MODULUS}: zigz_tpu's "
                              "mesh path builds its witness and evaluations in BabyBear")
@@ -428,11 +429,13 @@ class Prover:
             lo = witness_dev.build_witness(trace, trace.initial_regs, witness.num_vars, self.device,
                                            group=self.group, p=self.F.MODULUS)
         else:  # the Python interpreter's trace: upload the host matrix, or this rank's columns of it
-            matrix = witness.matrix
+            matrix = witness.matrix  # canonical uint64: u32 words below 2^31, u64 over a 64-bit field
             if self.group is not None:
                 witness_dev.check_slice_width(matrix.shape[1], self.group.world_size)
                 matrix = np.ascontiguousarray(dist.shard_rows(self.group, matrix))
-            lo = witness_dev.from_numpy(matrix.astype(np.uint32), self.device, p=self.F.MODULUS)
+            if not mle.is_wide(self.F.MODULUS):
+                matrix = matrix.astype(np.uint32)
+            lo = witness_dev.from_numpy(matrix, self.device, p=self.F.MODULUS)
         synchronize(self.device)
         self.last_timings["witness_dev_s"] = time.perf_counter() - t0
 
@@ -471,13 +474,11 @@ class Prover:
         points = [[transcript.challenge(F) for _ in range(num_vars)] for _ in range(43)]
         self.last_timings["points_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        if num_vars > 0:
-            pts_arr = np.array([[c.value for c in pt] for pt in points], dtype=np.uint64)
-            # The forest evaluates from its device-resident witness: the
-            # lazy host matrix is not touched.
-            values = forest.eval_backend(None, pts_arr)
-        else:
-            values = forest.lo[:, 0].cpu().numpy()
+        # The forest evaluates from its device-resident witness: the lazy
+        # host matrix is not touched.  With no variable (one step) the
+        # points are (43, 0) and the values are the witness's first column.
+        pts_arr = np.array([[c.value for c in pt] for pt in points], dtype=np.uint64).reshape(43, num_vars)
+        values = forest.eval_backend(None, pts_arr)
         self.last_timings["evals_s"] = time.perf_counter() - t0
         indices = np.array(
             [(points[i][0].value % (1 << num_vars)) if num_vars else 0 for i in range(43)],
