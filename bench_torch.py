@@ -169,10 +169,11 @@ def _passes(version: int, v: int, first: bool):
 
 def _counters_reset() -> None:
     from zigz_tpu_torch.lookups import pipeline_lasso
-    from zigz_tpu_torch.ops import keccak, ligero_dev, poseidon2, zerocheck_dev_ext
+    from zigz_tpu_torch.ops import keccak, ligero_dev, ntt_dev, poseidon2, zerocheck_dev_ext
 
     keccak.LAUNCHES.update(leaves=0, merge=0)
     ligero_dev.LAUNCHES.update(columns=0, absorb=0)
+    ntt_dev.LAUNCHES.update(tile=0, stage=0)
     poseidon2.LAUNCHES.update(leaves=0, merge=0, absorb=0)
     poseidon2.PERMUTATIONS["count"] = 0
     zerocheck_dev_ext.reset_counters()
@@ -181,13 +182,14 @@ def _counters_reset() -> None:
 
 def _counters(proof, version: int) -> dict:
     from zigz_tpu_torch.lookups import pipeline_lasso
-    from zigz_tpu_torch.ops import keccak, ligero_dev, poseidon2, zerocheck_dev_ext
+    from zigz_tpu_torch.ops import keccak, ligero_dev, ntt_dev, poseidon2, zerocheck_dev_ext
     from zigz_tpu_torch.proofs.zerocheck import count_zerocheck_proofs
 
     counts = {"K1": keccak.LAUNCHES["leaves"], "K2": keccak.LAUNCHES["merge"]}
     if version >= 2:
         counts.update({
             "K4": ligero_dev.LAUNCHES["columns"], "K5": ligero_dev.LAUNCHES["absorb"],
+            "N1": ntt_dev.LAUNCHES["tile"], "N2": ntt_dev.LAUNCHES["stage"],
             "P1": poseidon2.LAUNCHES["leaves"], "P2": poseidon2.LAUNCHES["merge"],
             "P3": poseidon2.LAUNCHES["absorb"], "p2_permutations": poseidon2.PERMUTATIONS["count"],
             "zerochecks": count_zerocheck_proofs(proof),

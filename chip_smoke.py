@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's v1 to v4 provers (v1 over all six fields), its zerocheck,
-Poseidon2 and 64-bit fold kernels,
+Poseidon2, 64-bit fold and Reed-Solomon encode kernels,
 its forest's memory plan at 2^25 steps, its base-field device zerocheck,
 its standalone modules and its sharded prover (two ranks sharing the card)
 on one NVIDIA GPU and check them.
@@ -45,18 +45,18 @@ the last line:
      the 43 witness MLEs at 2^20), each with its own times and bound; K4
      and K5 (driven over the raw rows) at 1, 255 and 4097 columns times
      1, 33, 34, 543, 544 and 545 rows with the values 0 and p - 1.
-     A hashlib check of a sample for every kernel, and the time of the
-     Reed-Solomon encode of one 544-row block (torch ops, 2^16 -> 2^19).
-     Each kernel's bound: the larger of its bytes (inputs read once,
-     outputs written once) over 3.35 TB/s and its operations: for K1 and
-     K2 the hashes times the SM clocks one thread of the kernel takes,
-     from its whole SASS counted at every address (``issue_count``: the
-     issue slots, 128 a clock an SM, against the ALU and FMA pipes, 64
-     each; the superseded count, K2's first 4,096 instructions over the
-     INT32 lanes, logged beside it); for K4 and K5 their Keccak
-     permutations times that count over 132 SMs x 64 INT32 lanes x the
-     card's maximum SM clock.  No PyTorch call computes SHA3-256, so
-     ``library_ms`` is null.
+     A hashlib check of a sample for every kernel.  Each kernel's bound:
+     the larger of its bytes (inputs read once, outputs written once) over
+     3.35 TB/s and its operations at the card's maximum SM clock, under the
+     issue slots (128 a clock an SM) against the ALU and FMA pipes (64
+     each): for K1 and K2 the hashes times the SM clocks one thread takes
+     for one, from its whole SASS counted at every address
+     (``issue_count``); for K4 and K5, which loop, the rate blocks times one
+     block's count and the columns times a column's own code, from chains
+     of 2 and 1 blocks (``bound_chain_counts``); the superseded count, K2's
+     first 4,096 instructions over 132 SMs x 64 INT32 lanes, is logged
+     beside it, and for K4 and K5 their whole SASS billed to every block.  No
+     PyTorch call computes SHA3-256, so ``library_ms`` is null.
      Then the Poseidon2 kernels (csrc/poseidon2_kernels.cu over the
      permutation P0 of csrc/poseidon2.cuh; they replace the JAX package's
      jitted jnp, not a Pallas kernel) against their plain versions on the
@@ -83,11 +83,10 @@ the last line:
      first CUDA version's yardstick (3,987 instructions over the INT32
      lanes) is logged beside each bound for comparison.  No PyTorch call
      computes Poseidon2 (``library_ms`` null).  P1-P3's registers and spills
-     (ptxas) are printed in phase 1.  Then the device functions that are torch ops,
-     not kernels (the JAX package computes them in jnp): ``vecmat_device``
-     against the host ``_vecmat``, and the time by CUDA events and the
-     launches (``torch.profiler``) of it and of ``encode_rows`` at the
-     widths of the 2^20 proves.  The three advice twins are held against the host
+     (ptxas) are printed in phase 1.  Then the device function that is torch
+     ops, not a kernel (the JAX package computes it in jnp):
+     ``vecmat_device`` against the host ``_vecmat``, its time by CUDA events
+     and its launches (``torch.profiler``) at the width of the 2^20 proves.  The three advice twins are held against the host
      advice columns of every v2, v3 and v4 prove below, plane by plane,
      after that prove has returned (its timings carry none of the check).
   2c. E1, the 64-bit fold (csrc/field64_kernels.cu over csrc/field64.cuh;
@@ -102,16 +101,36 @@ the last line:
      outputs x one thread's SM clocks (``issue_count`` of the field's
      instantiation); ptxas's registers and spills.  No PyTorch call
      computes a 64-bit modular fold (``library_ms`` null).
+  2d. N1 and N2, the Reed-Solomon row encode of every Ligero commit
+     (csrc/ntt_kernels.cu over csrc/ntt.cuh; they replace the JAX
+     package's jitted jnp four-step NTT, not a Pallas kernel), against
+     ``_encode_rows_plain`` on the same card tensors
+     (``ntt_kernel_phase``), byte error 0: (544, 2^16) -> 2^19 (a stream
+     block of the v2-v4 2^20 commits), (544, 2^17) -> 2^20 (the same at
+     2^22 steps) and (688, 2^16) -> 2^19 (``ligero_commit_device`` at
+     2^20), and 0, 1, 33 and 545 rows x n_out 2, 2^12, 2^13 and 2^14 (the
+     tile of 2^13 outputs, its half and its double) x n 1, n_out / 8 and
+     n_out with 0 and p - 1 among the values; each call's launches N1 once
+     and N2 once a stage of ``n2_stages``, the header's plan (none for no
+     rows).  At the three main shapes the encode, N1 alone and each N2
+     stage by CUDA events, the plain version's ms, and the bound: the
+     butterflies x one butterfly's SM clocks (``bound_chain_counts``: phase
+     1 builds csrc/measure/bound_chains.cu, which is not a unit of the
+     kernels' library, beside the kernels' build, and counts the difference
+     of chains of 64 and 32 butterflies in the SASS), against the bytes;
+     ptxas's registers and spills.  No PyTorch call computes a BabyBear NTT (``library_ms``
+     null).
   2b. the bench's multiply-chain kernel (csrc/field_kernels.cu, the
      headline of bench_torch.py; no TPU counterpart): ``babybear.mul_chain``
      against ``_mul_chain_plain`` on the card at 2^22 elements and at the
      ragged sizes 1, 255 and 4097, with 0, 1 and p - 1 among x and y, byte
      error 0; kernel and plain times by CUDA events around 20 reps queued
      behind a spin (``bench_torch.queued_event_ms``: a rep is shorter than
-     its launch from Python); its bound from the
-     integer instructions of its SASS (each thread takes one element, so
-     every instruction runs once an element) over 132 SMs x 64 INT32 lanes
-     x the SM clock, against 12 B an element over 3.35 TB/s.  No PyTorch
+     its launch from Python); its bound from its whole SASS (each thread
+     takes one element, so every instruction runs once an element) under
+     the issue-slot and two-pipe model, against 12 B an element over
+     3.35 TB/s; the superseded count (its integer instructions over 132
+     SMs x 64 INT32 lanes) logged beside it.  No PyTorch
      call fuses the chain (``library_ms`` null).  Then this slice's path:
      ``bench_torch.main`` at v1 2^14 and 2^18 only (headline at 2^22 lanes,
      the host anchor, the two ladder sizes pinned for the bench), its last
@@ -153,10 +172,13 @@ the last line:
      the ADVICE rows that were uploaded.  The sweep is the zerocheck
      kernels Z1 and Z2 alone: their launches must be those each
      zerocheck's width and host tail imply (two a card round), at most
-     1,000 at 2^20.
+     1,000 at 2^20.  Every encode runs on the card: N1 once a 544-row
+     stream block of each commit and once more a block in the openings,
+     N2 once a stage of each (phases 8 and 9 alike).
   7. ``ligero_commit_device`` of 43 random MLEs at 2^18: root, leaf digests
      and levels equal the port's host ``ligero_commit`` (the C++ encoder and
-     column hasher) of the same columns; the state, whose matrix lies on
+     column hasher) of the same columns, N1 launched once and N2 once a
+     stage; the state, whose matrix lies on
      the device, is opened with ``ligero_prove_eval`` (``vecmat_device``,
      ``column_evals_device``) and verified with ``ligero_verify_eval``.
   8. protocol v4 (the 43 witness MLEs under the DATA commitment, no
@@ -242,8 +264,8 @@ the last line:
      v2's ``data_commit_sharded``, ``advice_commit_sharded``,
      ``batch_eval_sharded`` and ``open_sharded`` true and
      ``zerochecks_sharded`` false, and the two commits' shapes those whose
-     column shards phase 2 held K4 to; per rank the K1/K2/K4/K5 launches (K1, K2
-     and, for v2, K4 > 0), the forest's plan, the phase timings and the peak
+     column shards phase 2 held K4 to; per rank the K1/K2/K4/K5 and N1/N2 launches (K1, K2
+     and, for v2, K4, N1 and N2 > 0), the forest's plan, the phase timings and the peak
      device memory.  Then a job whose rank 1 kills itself after
      ``initialize``: the launcher must fail inside its timeout and leave no
      result file, and the relaunch must give the pinned digest.  Two ranks
@@ -269,7 +291,12 @@ beside them) and their measurements from phase 9b.  P1-P3 take their
 launches from the 2^20 v3 prove of phase 9 (v3 2^16, the fibonacci guest and
 phase 10's forced plan beside them) and their measurements from phase 2; P0,
 the permutation inlined in all three, is listed with P1's measurements and
-the three's launches.  The last three lines are the
+the three's launches.  N1 and N2 take their launches from the 2^20 v2
+prove of phase 6 (v3, v4 at 2^20, v2 at 2^16, phase 7 and the ranks of
+phase 15's v2 prove beside them) and their measurements from phase 2d: N1
+alone and the mean of the N2 stages at (544, 2^16) -> 2^19, the whole
+encode at the three main shapes on N1's entry, the plain version being the
+whole encode's.  The last three lines are the
 kernel JSON line, the card's nvidia-smi line and the result line
 {"ok": true, "device": {...}}.
 """
@@ -554,13 +581,14 @@ def zerocheck_kernel_phase(specs, dev, max_sm_mhz: float, mul_instr: float, add_
     return {"z1": z1, "z2": z2, "z1_programs": every}
 
 
-def poseidon2_ptxas(build_log: str) -> dict:
-    """ptxas's registers, stack frame and spills of P1-P3 (``-Xptxas -v`` in
-    the kernels' build log; empty where the library was reused)."""
+def kernel_ptxas(build_log: str, names) -> dict:
+    """ptxas's registers, stack frame and spills of each kernel of ``names``
+    (``-Xptxas -v`` in the kernels' build log; empty where the library was
+    reused)."""
     from zigz_tpu_torch.ops import _build
 
     report = {}
-    for name in ("p2_leaves_kernel", "p2_merge_kernel", "p2_absorb_kernel"):
+    for name in names:
         part = next((part for part in build_log.split("Compiling entry function")[1:]
                      if name in part.splitlines()[0]), "")
         report[name] = _build.ptxas_report(part)
@@ -594,6 +622,67 @@ def poseidon2_unrolled_count(nvcc: str) -> dict:
     return dict(count, nvcc_s=nvcc_s)
 
 
+def bound_chain_counts(nvcc: str) -> dict:
+    """What one unit of work of a looping kernel issues, from chains of it
+    that nothing launches: nvcc builds csrc/measure/bound_chains.cu (not a
+    unit of the kernels' library) into a cubin under build/, and
+    ``issue_count`` counts each chain in ``cuobjdump -sass`` at every
+    address.  ``butterfly``: one butterfly of N1/N2 (csrc/ntt.cuh
+    ``butterfly_values``: a Montgomery product, an add and a sub mod p), the
+    chains of 64 and 32 butterflies' difference over 32, with no index,
+    load or store.  ``block_K4`` and ``block_K5``: one rate block of the
+    column sponges (34 row-strided word loads, their XOR into the state and
+    one Keccak-f), the chains of 3 and 2 blocks' difference, a block after
+    the first, from the zero state with 4 lanes stored (K4) or from 25
+    lanes loaded and stored (K5);
+    ``column_K4`` and ``column_K5``: the chain of 2 blocks less two blocks,
+    the code a column runs once (for K4 less what its first block saves,
+    which may leave it below zero).  Each count holds the issued instructions,
+    those of each pipe of P2_PIPES, the SM clocks at the least (the largest
+    of issued / ISSUE_LANES and each pipe's count over its rate) and the limb
+    that sets it; ``nvcc_s`` is nvcc's seconds."""
+    from zigz_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = _build.BUILD_DIR / "bound_chains.cubin"
+    t0 = time.perf_counter()
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-I", str(_build.CSRC),
+                    "-cubin", "-o", str(cubin), str(_build.CSRC / "measure" / "bound_chains.cu")],
+                   capture_output=True, text=True, check=True, timeout=600)
+    nvcc_s = time.perf_counter() - t0
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True, check=True).stdout
+
+    def per_unit(long: dict, short: dict, units: int) -> dict:
+        return with_clocks({k: (long[k] - short[k]) / units for k in ("issued", *P2_PIPES)})
+
+    long, short = (issue_count(sass, "ntt_butterfly_chain_kernel", f"ILi{c}E") for c in (64, 32))
+    counts = {"butterfly": dict(per_unit(long, short, 32), opcodes_64=long["opcodes"]), "nvcc_s": nvcc_s}
+    if not 6 <= counts["butterfly"]["issued"] <= 40:
+        raise AssertionError(f"implausible count {counts['butterfly']['issued']} for one butterfly (chains: "
+                             f"{long['issued']}, {short['issued']})")
+    for key, carried in (("K4", "Lb0E"), ("K5", "Lb1E")):
+        three, two = (issue_count(sass, "sha3_block_chain_kernel", f"ILi{b}E{carried}") for b in (3, 2))
+        block = per_unit(three, two, 1)
+        column = with_clocks({k: two[k] - 2 * block[k] for k in ("issued", *P2_PIPES)})
+        if not 3000 < block["issued"] < 12000 or not -1000 < column["issued"] < 1000:
+            raise AssertionError(f"implausible counts for {key}: a block {block['issued']}, a column "
+                                 f"{column['issued']} (chains: {three['issued']}, {two['issued']})")
+        counts.update({f"block_{key}": dict(block, opcodes_3=three["opcodes"]), f"column_{key}": column})
+    return counts
+
+
+def with_clocks(counts: dict) -> dict:
+    """``counts`` (issued instructions and those of each pipe of P2_PIPES)
+    with the SM clocks they take at the least, the largest of issued /
+    ISSUE_LANES and each pipe's count over its rate, and the limb that sets
+    it."""
+    clocks = {"issue": counts["issued"] / ISSUE_LANES,
+              **{pipe: counts[pipe] / rate for pipe, (_, rate) in P2_PIPES.items()}}
+    limb = max(clocks, key=clocks.get)
+    return dict(counts, sm_clocks=clocks[limb], limb=limb)
+
+
 def issue_count(sass: str, *names) -> dict:
     """The instructions one thread of a straight-line kernel issues: the
     first function of ``cuobjdump -sass`` output whose name holds every one
@@ -607,10 +696,7 @@ def issue_count(sass: str, *names) -> dict:
     last_exit = len(opcodes) - 1 - opcodes[::-1].index("EXIT")
     issued = [op for op in opcodes[: last_exit + 1] if op != "NOP"]
     counts = {"issued": len(issued), **{pipe: sum(op in ops for op in issued) for pipe, (ops, _) in P2_PIPES.items()}}
-    clocks = {"issue": counts["issued"] / ISSUE_LANES,
-              **{pipe: counts[pipe] / rate for pipe, (_, rate) in P2_PIPES.items()}}
-    limb = max(clocks, key=clocks.get)
-    return dict(counts, sm_clocks=clocks[limb], limb=limb, opcodes={op: issued.count(op) for op in sorted(set(issued))})
+    return dict(with_clocks(counts), opcodes={op: issued.count(op) for op in sorted(set(issued))})
 
 
 def poseidon2_kernel_phase(dev, max_sm_mhz: float, perm_count: dict, n_leaves: int = 43 << 20,
@@ -927,6 +1013,132 @@ def field64_kernel_phase(dev, max_sm_mhz: float, counts: dict, build_log: str) -
     return results
 
 
+def ntt_kernel_phase(dev, max_sm_mhz: float, butterfly: dict, build_log: str) -> dict:
+    """Phase 2d: N1 and N2, the Reed-Solomon row encode (``ntt_dev.encode_rows``,
+    csrc/ntt_kernels.cu over csrc/ntt.cuh), against its plain version
+    ``_encode_rows_plain`` on the same card tensors, byte error 0, at the
+    main path's shapes, (544, 2^16) -> 2^19 (a stream block of the v2-v4
+    2^20 commits), (544, 2^17) -> 2^20 (the same at 2^22 steps, where
+    ``choose_split_mixed`` gives n = 2^17) and (688, 2^16) -> 2^19
+    (``ligero_commit_device`` of the 43 witness MLEs at 2^20), and at R in
+    {0, 1, 33, 545} rows x n_out in {2, 2^12, 2^13, 2^14} x n in {1,
+    n_out / 8, n_out}, the values 0 and p - 1 first in every matrix; each
+    call's launches are N1 once and N2 once a stage of ``n2_stages``.  At
+    the main shapes: the
+    whole encode, N1 alone and each N2 stage by CUDA events, the plain
+    version's ms, and the bound: the butterflies x the SM clocks of one
+    butterfly's arithmetic (``butterfly``, from bound_chain_counts) over
+    SM_COUNT SMs at ``max_sm_mhz``, against the bytes (coefficients and
+    twiddles read once, the output written once; an N2 stage reads and
+    writes the output).  No PyTorch call computes a BabyBear NTT
+    (``library_ms`` null).  Returns the entries ``ntt`` (the whole encode at
+    each main shape), ``n1``, ``n2`` (the first main shape) and ``ptxas``."""
+    import torch
+
+    from zigz_tpu_torch.ops import ntt_dev
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    clock_ms = 1e3 / (SM_COUNT * max_sm_mhz * 1e6)
+
+    def coefficients(r, n):
+        t = torch.randint(0, P, (r, n), device=dev, dtype=torch.int32, generator=gen)
+        edge = torch.tensor([0, P - 1], device=dev, dtype=torch.int32)[: min(2, t.numel())]
+        t.view(-1)[: edge.numel()] = edge
+        return t
+
+    def byte_err(a, b) -> int:
+        if a.numel() == 0 and b.numel() == 0:
+            return 0
+        return int((a.view(torch.uint8).to(torch.int16) - b.view(torch.uint8).to(torch.int16)).abs().max())
+
+    def event_ms(fn, reps) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bound(butterflies, nbytes):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = butterflies * butterfly["sm_clocks"] * clock_ms
+        return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    library_ms=None)
+
+    def check(r, n, n_out):
+        """encode_rows on the card == the plain version (byte error), with
+        N1's launch and N2's for each stage of n2_stages."""
+        mat = coefficients(r, n)
+        before = dict(ntt_dev.LAUNCHES)
+        got = ntt_dev.encode_rows(mat, n_out)
+        launched = (ntt_dev.LAUNCHES["tile"] - before["tile"], ntt_dev.LAUNCHES["stage"] - before["stage"])
+        want = (1, len(ntt_dev.n2_stages(n, n_out))) if r else (0, 0)
+        if launched != want or tuple(got.shape) != (r, n_out) or got.dtype != torch.int32:
+            raise AssertionError(f"encode_rows ({r}, {n}) -> {n_out}: launches {launched}, not {want}, or "
+                                 f"{got.dtype} {tuple(got.shape)}")
+        return mat, byte_err(got, ntt_dev._encode_rows_plain(mat, n_out))
+
+    err = 0
+    for r in (0, 1, 33, 545):
+        for n_out in (2, 1 << 12, 1 << 13, 1 << 14):  # the tile of 2^13 outputs, its half and its double
+            for n in sorted({1, max(1, n_out // 8), n_out}):
+                err = max(err, check(r, n, n_out)[1])
+    log(f"phase 2d N1/N2: encode_rows == _encode_rows_plain (max byte err {err}) at 0, 1, 33, 545 rows x n_out 2, "
+        f"2^12, 2^13, 2^14 x n 1, n_out / 8, n_out, with 0 and p - 1 among the values")
+
+    results = {"ntt": []}
+    for r, n, n_out, what in ((544, 1 << 16, 1 << 19, "a stream block of the v2-v4 2^20 commits"),
+                              (544, 1 << 17, 1 << 20, "a stream block at 2^22 steps"),
+                              (688, 1 << 16, 1 << 19, "ligero_commit_device, 43 MLEs at 2^20")):
+        mat, err_here = check(r, n, n_out)
+        err = max(err, err_here)
+        log_k = (n_out // n).bit_length() - 1
+        log_out = n_out.bit_length() - 1
+        stages = ntt_dev.n2_stages(n, n_out)  # N1 runs stages log_k .. stages.start - 1
+        tw = ntt_dev._mont_twiddles(n_out, dev)
+        out = torch.empty((r, n_out), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        half = r * n_out // 2
+        entry = dict(
+            max_abs_err=err_here, shape=f"({r}, {n}) -> ({r}, {n_out}) [{what}]",
+            ms=event_ms(lambda: ntt_dev.encode_rows(mat, n_out), 10),
+            plain_ms=event_ms(lambda: ntt_dev._encode_rows_plain(mat, n_out), 2),
+            launches_a_call=1 + len(stages),
+            n1_ms=event_ms(lambda: ntt_dev._launch_tile(mat, tw, out, stream), 10),
+            n2_ms=[event_ms(lambda: ntt_dev._launch_stage(out, tw, s, stream), 10) for s in stages],
+            n1_stages=[log_k, stages.start - 1] if log_k < stages.start else None,
+            n2_stages=[stages[0], stages[-1]] if stages else None,
+            butterflies=half * (log_out - log_k),
+            **bound(half * (log_out - log_k), 4 * (r * n + n_out - 1 + r * n_out)))
+        n1 = bound(half * max(0, stages.start - log_k), 4 * (r * n + (1 << stages.start) - 1 + r * n_out))
+        n2 = bound(half, 4 * (2 * r * n_out + n_out // 2))  # one stage
+        entry.update(n1_bound_ms=n1["bound_ms"], n1_bound_by=n1["bound_by"], n2_bound_ms=n2["bound_ms"],
+                     n2_bound_by=n2["bound_by"])
+        results["ntt"].append(entry)
+        log(f"phase 2d N1/N2 {entry['shape']}: kernel == plain (byte err {err_here}); encode {entry['ms']} ms in "
+            f"{entry['launches_a_call']} launches (N1 {entry['n1_ms']} ms, stages {entry['n1_stages']}; N2 "
+            f"{entry['n2_ms']} ms, stages {entry['n2_stages']}), plain {entry['plain_ms']} ms; bound "
+            f"{entry['bound_ms']} ms by {entry['bound_by']} ({entry['butterflies']} butterflies x "
+            f"{butterfly['sm_clocks']} SM clocks, set by {butterfly['limb']}: {entry['bound_ms'] / entry['ms']:.1%}); "
+            f"N1 bound {entry['n1_bound_ms']} ms, an N2 stage's {entry['n2_bound_ms']} ms")
+        del mat, out
+        torch.cuda.empty_cache()
+    if err:
+        raise AssertionError(f"N1/N2 disagree with their plain version: byte error {err}")
+    results["ptxas"] = kernel_ptxas(build_log, ("ntt_tile_kernel", "ntt_stage_kernel"))
+    for name, report in results["ptxas"].items():
+        log(f"phase 2d ptxas {name}: {report['registers']} registers, stack frame {report['stack_frame_B']} B, "
+            f"spill stores {report['spill_stores_B']} B, spill loads {report['spill_loads_B']} B")
+    main = results["ntt"][0]
+    results["n1"] = dict(main, ms=main["n1_ms"], bound_ms=main["n1_bound_ms"], bound_by=main["n1_bound_by"])
+    results["n2"] = dict(main, ms=sum(main["n2_ms"]) / len(main["n2_ms"]), bound_ms=main["n2_bound_ms"],
+                         bound_by=main["n2_bound_by"])
+    return results
+
+
 def wide_field_phases(dev, pinned) -> dict:
     """Phases 4c and 5b: v1 over Goldilocks and Mersenne61 through
     ``Prover(F, device=dev)``.  4c: NOP at 2^16 and 2^20 steps and the
@@ -1110,8 +1322,10 @@ def group_phases(pinned) -> dict:
             if version == 1 and not (counts["K1"] > 0 and counts["K2"] > 0):
                 raise AssertionError(f"{name} on rank {res['rank']}: K1 or K2 was not launched: {counts}")
             if version == 2:
-                if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K4"] > 0):
-                    raise AssertionError(f"{name} on rank {res['rank']}: K1, K2 or K4 was not launched: {counts}")
+                if not (counts["K1"] > 0 and counts["K2"] > 0 and counts["K4"] > 0 and counts["N1"] > 0
+                        and counts["N2"] > 0):
+                    raise AssertionError(f"{name} on rank {res['rank']}: K1, K2, K4, N1 or N2 was not launched: "
+                                         f"{counts}")
                 flags = {k: t.get(k) for k in ("data_commit_sharded", "advice_commit_sharded", "batch_eval_sharded",
                                                "open_sharded", "zerochecks_sharded")}
                 if flags != {"data_commit_sharded": True, "advice_commit_sharded": True, "batch_eval_sharded": True,
@@ -1210,6 +1424,7 @@ def main() -> int:
         host_libs = [pool.submit(fn) for fn in (runtime._load_dag, runtime._load_ext4, runtime._load_ntt,
                                                 runtime._load_lasso, native_vm._load)]
         p2_unrolled = pool.submit(poseidon2_unrolled_count, info["nvcc"])
+        chains = pool.submit(bound_chain_counts, info["nvcc"])
         kernels = _build.load()
         if not runtime.NATIVE_AVAILABLE or any(lib.result() is None for lib in host_libs):
             raise RuntimeError("the host C++ runtime (zigz_tpu_torch/runtime/*.cpp) did not build")
@@ -1247,14 +1462,17 @@ def main() -> int:
     log(f"phase 1 sass: K2 has {len(opcodes)} instructions, {perm_instr} of them integer ALU "
         f"({ {op: opcodes.count(op) for op in sorted(set(opcodes))} })")
 
-    # K1's and K2's whole bodies (one permutation and its framing a thread,
-    # straight line), counted at every address under the issue-slot and
-    # two-pipe model of the Poseidon2 kernels; K4 and K5 keep the count
-    # above over the INT32 lanes.  E1's two instantiations, one output a
-    # thread.
-    keccak_counts = {"leaves": issue_count(sass, "sha3_leaves_kernel"), "merge": issue_count(sass, "sha3_merge_kernel")}
+    # Every kernel's whole body counted at every address under the
+    # issue-slot and two-pipe model of the Poseidon2 kernels: K1's and K2's
+    # (one permutation and its framing a thread, straight line), the
+    # multiply chain's (one element a thread), and E1's two instantiations
+    # (one output a thread).  K4 and K5 loop over rate blocks, so their whole
+    # SASS is logged only: their bound takes a block's count and a column's
+    # from chains of blocks (bound_chain_counts).
+    keccak_counts = {key: issue_count(sass, f"sha3_{key}_kernel") for key in ("leaves", "merge", "columns", "absorb")}
+    chain_count = issue_count(sass, "field_mul_chain_kernel")
     e1_counts = {name: issue_count(sass, "mle_fold_u64_kernel", name) for name in ("Goldilocks", "Mersenne61")}
-    for name, count in (*keccak_counts.items(), *e1_counts.items()):
+    for name, count in (*keccak_counts.items(), ("field_mul_chain", chain_count), *e1_counts.items()):
         low, high = (3000, 12000) if name in keccak_counts else (10, 400)
         if not low < count["issued"] < high:
             raise AssertionError(f"implausible count {count['issued']} for {name} in its SASS")
@@ -1262,8 +1480,8 @@ def main() -> int:
             f"and {count['FMA']} IMAD on the FMA pipe ({count['opcodes']}): {count['sm_clocks']} SM clocks a "
             f"thread, set by {count['limb']}")
 
-    # The multiply-chain kernel's: every integer instruction of the function,
-    # since each thread takes one element and runs each once.
+    # The multiply chain's integer instructions over its CHAIN + 1 multiplies:
+    # Z1's bound counts a DAG's multiply at that (phase 9b).
     chain_opcodes = function_opcodes("field_mul_chain")
     chain_instr = sum(1 for op in chain_opcodes if op in INT_OPCODES)
     if not 50 < chain_instr < 400:
@@ -1284,15 +1502,27 @@ def main() -> int:
         f"{68 * (1 << 19) * p2_count['sm_clocks'] * clock_ms} ms (P3); for comparison only, the first version's "
         f"yardstick ({P2_FIRST_VERSION_INSTR} integer instructions over the INT32 lanes): "
         f"{(43 << 20) * P2_FIRST_VERSION_INSTR * first_ms} ms (P1, P2) and {68 * (1 << 19) * P2_FIRST_VERSION_INSTR * first_ms} ms (P3)")
-    p2_ptxas = poseidon2_ptxas(kernels.log)
+    p2_ptxas = kernel_ptxas(kernels.log, ("p2_leaves_kernel", "p2_merge_kernel", "p2_absorb_kernel"))
+    unit_counts = chains.result()
+    butterfly = unit_counts["butterfly"]
+    log(f"phase 1 sass: one butterfly of N1/N2 (chains of 64 and 32 butterflies, nvcc {unit_counts['nvcc_s']:.1f} s) "
+        f"issues {butterfly['issued']} instructions, {butterfly['ALU']} on the ALU pipe and {butterfly['FMA']} IMAD "
+        f"on the FMA pipe ({butterfly['opcodes_64']} in the chain of 64): {butterfly['sm_clocks']} SM clocks a "
+        f"butterfly, set by {butterfly['limb']}")
+    for key in ("K4", "K5"):
+        block, column = unit_counts[f"block_{key}"], unit_counts[f"column_{key}"]
+        log(f"phase 1 sass: one rate block of {key}'s sponge (chains of 3 and 2 blocks) issues {block['issued']} "
+            f"instructions, {block['ALU']} on the ALU pipe and {block['FMA']} IMAD on the FMA pipe "
+            f"({block['opcodes_3']} in the chain of 3): {block['sm_clocks']} SM clocks a block, set by "
+            f"{block['limb']}; a column's own code {column['issued']} instructions, {column['sm_clocks']} SM clocks")
     for name, report in p2_ptxas.items():
         log(f"phase 1 ptxas {name}: {report['registers']} registers, stack frame {report['stack_frame_B']} B, "
             f"spill stores {report['spill_stores_B']} B, spill loads {report['spill_loads_B']} B")
 
     def bound(units: int, nbytes: int, instr_each: int = perm_instr) -> dict:
-        """The least time the card could take: bytes over the memory rate, or
-        units (permutations by default) x their integer instructions over the
-        INT32 instruction rate at the maximum clock."""
+        """The superseded bound, logged beside sass_bound's: bytes over the
+        memory rate, or units (permutations by default) x their integer
+        instructions over the INT32 instruction rate at the maximum clock."""
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = units * instr_each / (INT32_LANES * max_sm_mhz * 1e6) * 1e3
         return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -1351,17 +1581,41 @@ def main() -> int:
         check_hashlib(f"K2 n={n}", got, msg, torch.arange(n, device=dev))
     if err or merge_err:
         raise AssertionError(f"kernels disagree with their plain versions: K1 {err}, K2 {merge_err}")
-    def keccak_bound(key, hashes: int, nbytes: int) -> dict:
-        """K1's or K2's bound: the bytes against the hashes x the SM clocks
-        one thread of the kernel takes (its whole SASS); the superseded
-        count over the INT32 lanes is logged beside it."""
+    def sass_bound(key, units: int, nbytes: int, count: dict, superseded: dict) -> dict:
+        """A kernel's bound: the bytes against the units (hashes,
+        permutations or elements) x the SM clocks one thread of the kernel
+        takes for one (``count``, its whole SASS); the superseded bound is
+        logged beside it."""
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = hashes * keccak_counts[key]["sm_clocks"] * clock_ms
-        log(f"phase 2 {key}: bound {max(bytes_ms, ops_ms)} ms from the whole SASS ({keccak_counts[key]['sm_clocks']} "
-            f"SM clocks a hash, set by {keccak_counts[key]['limb']}); superseded: {bound(hashes, nbytes)['bound_ms']} "
-            f"ms ({perm_instr} integer instructions of K2's first 4,096 over the INT32 lanes)")
+        ops_ms = units * count["sm_clocks"] * clock_ms
+        log(f"phase 2 {key}: bound {max(bytes_ms, ops_ms)} ms from the whole SASS ({count['sm_clocks']} SM clocks "
+            f"a unit, set by {count['limb']}); superseded: {superseded['bound_ms']} ms")
         return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                     library_ms=None)
+
+    def sponge_bound(key, blocks: int, columns: int, nbytes: int) -> dict:
+        """K4's or K5's bound (``key`` "columns" or "absorb"): the bytes
+        against ``blocks`` rate blocks x one block's instructions plus
+        ``columns`` x a column's own (bound_chain_counts), under the
+        issue-slot and two-pipe model; the superseded bound (K2's first
+        4,096 instructions over the INT32 lanes a permutation) and the whole
+        SASS billed to every block are logged beside it."""
+        k = {"columns": "K4", "absorb": "K5"}[key]
+        block, column = unit_counts[f"block_{k}"], unit_counts[f"column_{k}"]
+        work = with_clocks({c: blocks * block[c] + columns * column[c] for c in ("issued", *P2_PIPES)})
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = work["sm_clocks"] * clock_ms
+        log(f"phase 2 {key}: bound {max(bytes_ms, ops_ms)} ms from {blocks} blocks x {block['sm_clocks']} SM clocks "
+            f"+ {columns} columns x {column['sm_clocks']} (set by {work['limb']}), bytes {bytes_ms} ms; superseded: "
+            f"{bound(blocks, nbytes)['bound_ms']} ms (K2's first 4,096 instructions), {blocks * keccak_counts[key]['sm_clocks'] * clock_ms} ms "
+            f"(the whole SASS a block)")
+        return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    library_ms=None)
+
+    def keccak_bound(key, units: int, nbytes: int) -> dict:
+        """K1 or K2 (``key``): units are hashes, the superseded bound K2's
+        first 4,096 instructions over the INT32 lanes."""
+        return sass_bound(key, units, nbytes, keccak_counts[key], bound(units, nbytes))
 
     results["leaves"] = dict(max_abs_err=err, shape=f"({43 << 20},) -> ({43 << 20}, 4)",
                              ms=event_ms(keccak.sha3_leaves, leaves_in, 20),
@@ -1407,7 +1661,7 @@ def main() -> int:
         max_abs_err=absorb_err, shape=f"state (25, {n_e}) + (544, {n_e}) words, 16 rate blocks",
         ms=event_ms(lambda s: ligero_dev.sha3_absorb(s, block, 0, 16, V2_DATA_ROWS), scratch, 20),
         plain_ms=event_ms(lambda s: ligero_dev._sha3_absorb_plain(s, block, 0, 16, V2_DATA_ROWS), scratch, 2),
-        **bound(16 * n_e, n_e * (2 * 25 * 8 + 544 * 4)))  # the state read and written, the block read
+        **sponge_bound("absorb", 16 * n_e, n_e, n_e * (2 * 25 * 8 + 544 * 4)))  # the state read and written, the block read
     del state0, absorbed, scratch, block
 
     # K4 at the shapes its callers give it: the (rows, n_e / 2) column shard
@@ -1424,7 +1678,7 @@ def main() -> int:
             max_abs_err=err_here, shape=f"({r}, {n}) -> ({n}, 4)",
             ms=event_ms(ligero_dev.sha3_columns, mat, 10),
             plain_ms=event_ms(ligero_dev._sha3_columns_plain, mat, 2),
-            **bound(ligero_dev.pad_words(r) // ligero_dev.RATE_WORDS * n, n * (r * 4 + 32)))
+            **sponge_bound("columns", ligero_dev.pad_words(r) // ligero_dev.RATE_WORDS * n, n, n * (r * 4 + 32)))
         columns_err = max(columns_err, err_here)
         del mat, columns_out
         torch.cuda.empty_cache()
@@ -1452,6 +1706,9 @@ def main() -> int:
     # -- phase 2c: E1, the 64-bit fold, against its plain version ------------
     e1_results = field64_kernel_phase(dev, max_sm_mhz, e1_counts, kernels.log)
 
+    # -- phase 2d: N1 and N2, the Reed-Solomon encode, against its plain version
+    ntt_results = ntt_kernel_phase(dev, max_sm_mhz, butterfly, kernels.log)
+
     def canonical(shape):
         """Random canonical int32."""
         return torch.randint(0, P, shape, device=dev, dtype=torch.int32, generator=gen)
@@ -1472,14 +1729,12 @@ def main() -> int:
     wide = words(688, 1 << 16)
     if not (ligero_dev.vecmat_device(weights, wide) == ligero._vecmat(weights, host_u64(wide))).all():
         raise AssertionError("vecmat_device differs from the host _vecmat")
-    coeffs = words(544, 1 << 16)
     torch_ops = {}
     for name, fn, x, reps in (
-            (f"encode_rows (544, 65536) -> (544, {n_e})", lambda m: ntt_dev.encode_rows(m, n_e), coeffs, 5),
-            ("vecmat_device (688,) x (688, 65536)", lambda m: ligero_dev.vecmat_device(weights, m), wide, 5)):
+            ("vecmat_device (688,) x (688, 65536)", lambda m: ligero_dev.vecmat_device(weights, m), wide, 5),):
         torch_ops[name] = dict(ms=event_ms(fn, x, reps), launches=launches_of(fn, x))
         log(f"phase 2 torch op {name}: {torch_ops[name]['ms']} ms, {torch_ops[name]['launches']} launches")
-    del coeffs, wide
+    del wide
     torch.cuda.empty_cache()
 
     # -- phase 2b: the bench's multiply-chain kernel, then the bench --------
@@ -1503,7 +1758,8 @@ def main() -> int:
     results["mul_chain"] = dict(max_abs_err=chain_err, shape=f"({1 << 22},) x2 int32 -> ({1 << 22},)",
                                 ms=bench_torch.queued_event_ms(babybear.mul_chain, x, y, 20),
                                 plain_ms=bench_torch.queued_event_ms(babybear._mul_chain_plain, x, y, 20),
-                                **bound(1 << 22, (1 << 22) * 12, instr_each=chain_instr))
+                                **sass_bound("mul_chain", 1 << 22, (1 << 22) * 12, chain_count,
+                                             bound(1 << 22, (1 << 22) * 12, instr_each=chain_instr)))
     r = results["mul_chain"]
     log(f"phase 2b mul_chain: kernel == plain at 1, 255, 4097 and 2^22 elements (max byte err {chain_err}); "
         f"{r['shape']}: kernel {r['ms']} ms, plain {r['plain_ms']} ms, bound {r['bound_ms']} ms by {r['bound_by']}")
@@ -1691,6 +1947,7 @@ def main() -> int:
     def port_prove_v2(program, entry, segments, tape, max_steps, version=2):
         keccak.LAUNCHES.update(leaves=0, merge=0)
         ligero_dev.LAUNCHES.update(columns=0, absorb=0)
+        ntt_dev.LAUNCHES.update(tile=0, stage=0)
         poseidon2.LAUNCHES.update(leaves=0, merge=0, absorb=0)
         poseidon2.PERMUTATIONS["count"] = 0
         ligero.STITCHED.update(dev_columns=0, host_rows=0)
@@ -1707,7 +1964,8 @@ def main() -> int:
             raise AssertionError(f"Prover's default device is {prover.device}, not the card")
         proof = prover.prove(program, entry, None, max_steps, segments, tape)
         peak = torch.cuda.max_memory_allocated(dev)  # before the checks below allocate
-        counts = {**keccak.LAUNCHES, **ligero_dev.LAUNCHES, "P1": poseidon2.LAUNCHES["leaves"],
+        counts = {**keccak.LAUNCHES, **ligero_dev.LAUNCHES, "N1": ntt_dev.LAUNCHES["tile"],
+                  "N2": ntt_dev.LAUNCHES["stage"], "P1": poseidon2.LAUNCHES["leaves"],
                   "P2": poseidon2.LAUNCHES["merge"], "P3": poseidon2.LAUNCHES["absorb"],
                   "p2_permutations": poseidon2.PERMUTATIONS["count"], **dag_dev.LAUNCHES, **ext4_dev.LAUNCHES}
         if counts["columns"]:
@@ -1720,9 +1978,17 @@ def main() -> int:
         if (tuple(bool(counts[k]) for k in ("leaves", "merge", "absorb", "P1", "P2", "P3")) != want
                 or counts["p2_permutations"]):
             raise AssertionError(f"the v{version} prove's launches are not those of its path: {counts}")
+        # N1 once a 544-row block of each commit, at commit time and again in
+        # the openings (which re-encode every block), and N2 once a stage of
+        # each: no encode of the prove ran the plain version.
+        shapes = [prover.last_timings[f"{c}_commit_shape"] for c in ("data", "advice")]
+        blocks = sum(-(-rows // 544) for rows, _, _ in shapes)
+        n2_want = sum(2 * -(-rows // 544) * len(ntt_dev.n2_stages(n, n_e)) for rows, n, n_e in shapes)
+        if (counts["N1"], counts["N2"]) != (2 * blocks, n2_want):
+            raise AssertionError(f"v{version}: N1/N2 launched {counts['N1']}/{counts['N2']} times, not "
+                                 f"{2 * blocks}/{n2_want} for the commits' {blocks} stream blocks, encoded twice")
         if version == 3:
             # P3 once a 544-row stream block of each commit
-            blocks = sum(-(-prover.last_timings[f"{c}_commit_shape"][0] // 544) for c in ("data", "advice"))
             if counts["P3"] != blocks:
                 raise AssertionError(f"v3: {counts['P3']} launches of P3, not one for each of the commits' "
                                      f"{blocks} stream blocks")
@@ -1819,13 +2085,17 @@ def main() -> int:
     rows = words(43, 1 << 18)
     columns = {name: rows[k].cpu().numpy().astype("uint64") for k, name in enumerate(names)}
     ligero_dev.LAUNCHES.update(columns=0, absorb=0)
+    ntt_dev.LAUNCHES.update(tile=0, stage=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     port_state = ligero_dev.ligero_commit_device(F, names, rows)
     port_s = time.perf_counter() - t0
     columns_launches = ligero_dev.LAUNCHES["columns"]
-    if not columns_launches:
-        raise AssertionError("ligero_commit_device did not launch K4")
+    commit_device_ntt = {"N1": ntt_dev.LAUNCHES["tile"], "N2": ntt_dev.LAUNCHES["stage"]}
+    if not columns_launches or commit_device_ntt != {
+            "N1": 1, "N2": len(ntt_dev.n2_stages(port_state.n, port_state.n_e))}:
+        raise AssertionError(f"ligero_commit_device did not launch K4, or N1 once and N2 once a stage: "
+                             f"{columns_launches}, {commit_device_ntt}")
     t0 = time.perf_counter()
     ref_state = ligero_commit(F, columns, "sha3")
     ref_s = time.perf_counter() - t0
@@ -1848,7 +2118,7 @@ def main() -> int:
         raise AssertionError("ligero_verify_eval rejected the opening of the ligero_commit_device state")
     log(f"phase 7 ligero_commit_device 43 x 2^18 ({port_state.m * 43} x {port_state.n_e} encoded): "
         f"root {port_state.root.hex()[:16]} == ligero_commit, {port_s} s (host ligero_commit {ref_s} s), "
-        f"K4 launches {columns_launches}; opened through vecmat_device/column_evals_device in {open_s} s "
+        f"K4 launches {columns_launches}, N1/N2 {commit_device_ntt}; opened through vecmat_device/column_evals_device in {open_s} s "
         f"== the host opening, ligero_verify_eval accepts")
 
     # -- phase 10: the forest's memory plan, where a reference exists -------
@@ -2052,6 +2322,11 @@ def main() -> int:
                 "launches_group_v1_2_22": [c[GROUP_KEYS[key]] for c in group_launches["v1-nop-2^22"]],
                 "launches_group_v2_2_20": [c[GROUP_KEYS[key]] for c in group_launches["v2-nop-2^20"]]}
 
+    def block_counts(key):
+        """K4's or K5's bound counts: a rate block's and a column's own."""
+        return {part: {k: unit_counts[f"{part}_{key}"][k] for k in ("issued", "ALU", "FMA", "sm_clocks", "limb")}
+                for part in ("block", "column")}
+
     sha3_source = "zigz_tpu_torch/csrc/sha3_kernels.cu"
     ligero_source = "zigz_tpu_torch/csrc/ligero_kernels.cu"
     # K3, the permutation, is a device function inlined in the four kernels
@@ -2072,12 +2347,13 @@ def main() -> int:
         permutation,
         dict(entry_of("sha3_columns (K4)", "columns", ligero_source, "zigz_tpu/ops/ligero_dev.py:45",
                       group_launches["v2-nop-2^20"][0]["K4"]),
-             launches_commit_device=columns_launches,
+             launches_commit_device=columns_launches, instructions=block_counts("K4"),
              other_shapes=[{k: results[key][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                                          "bound_by")}
                            for key in ("columns_data_shard", "columns_commit_device")]),
-        entry_of("sha3_absorb (K5)", "absorb", ligero_source, "zigz_tpu/ops/ligero_dev.py:256",
-                 v2_counts["absorb"]),
+        dict(entry_of("sha3_absorb (K5)", "absorb", ligero_source, "zigz_tpu/ops/ligero_dev.py:256",
+                      v2_counts["absorb"]),
+             instructions=block_counts("K5")),
         # A bench kernel with no TPU counterpart: bench.py:61 times an
         # XLA-fused jnp chain of zigz_tpu/ops/babybear.py:91 mont_mul, which
         # reaches no pl.pallas_call.
@@ -2163,6 +2439,30 @@ def main() -> int:
         "mersenne61": {k: m61[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "shape",
                                            "first_fold", "instructions_an_output", "ptxas")},
         "full_width_proves": wide_launches["full_width"]})
+    # N1 and N2, the Reed-Solomon encode: no TPU kernel (zigz_tpu jits it in
+    # jnp).  Launches from the v2 2^20 prove (the main path), v3 and v4 at
+    # 2^20, v2 at 2^16, phase 7's ligero_commit_device and the ranks of the
+    # sharded v2 2^20 prove beside them; measurements from phase 2d, where
+    # the plain version is the whole encode's.
+    for key, counter, name, kernel in (("n1", "N1", "ntt_tile (N1)", "ntt_tile_kernel"),
+                                       ("n2", "N2", "ntt_stage (N2)", "ntt_stage_kernel")):
+        r = ntt_results[key]
+        kernels_line["kernels"].append({
+            "name": name, "route": "cuda", "source": "zigz_tpu_torch/csrc/ntt_kernels.cu",
+            "replaces": "none: zigz_tpu/ops/ntt_dev.py:107 _encode_jit (the four-step NTT in jitted jnp, no "
+                        "pl.pallas_call) and the port's torch-op encode",
+            "tpu_kernel": None, "launches": v2_counts[counter],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+            "plain_of": "the whole encode, N1 and N2", "ptxas": ntt_results["ptxas"][kernel],
+            "launches_v3": launches_at_2_20[3][counter], "launches_v4": launches_at_2_20[4][counter],
+            "launches_v2_2_16": launches_at_2_16[counter], "launches_commit_device": commit_device_ntt[counter],
+            "launches_group_v2_2_20": [c[counter] for c in group_launches["v2-nop-2^20"]],
+            **({"ms_each_stage": r["n2_ms"]} if key == "n2" else {
+                "whole_encode": [{k: e[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "launches_a_call",
+                                                    "bound_ms", "bound_by", "butterflies")}
+                                 for e in ntt_results["ntt"]],
+                "instructions_a_butterfly": {k: butterfly[k] for k in ("issued", "ALU", "FMA", "sm_clocks",
+                                                                       "limb")}})})
     log(json.dumps({"torch_ops": torch_ops}))
     log(json.dumps(kernels_line))
     log(info["nvidia_smi"])

@@ -40,7 +40,7 @@ def main() -> int:
     chip_smoke.log(info["nvidia_smi"])
     kernels = _build.load()
     chip_smoke.log(f"kernels built in {kernels.build_s:.1f} s")
-    ptxas = chip_smoke.poseidon2_ptxas(kernels.log)
+    ptxas = chip_smoke.kernel_ptxas(kernels.log, ("p2_leaves_kernel", "p2_merge_kernel", "p2_absorb_kernel"))
     chip_smoke.log(f"ptxas: {ptxas}")
     max_sm_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                                       capture_output=True, text=True, check=True).stdout.split()[0])

@@ -11,8 +11,9 @@ first.  ``--host-tail N`` sets the width at which the extension zerochecks
 finish on the host (``zerocheck_dev_ext.HOST_TAIL_EXT``); each line carries
 their counters (``DEVICE_PROVES``: zerochecks and the zerocheck kernels'
 launches), the Poseidon2 kernels' launches and plain permutations, the
-proof's sha256 and the port's verdict on the serialized proof with its
-seconds (after the prove, outside its timings).  Needs a CUDA device."""
+Reed-Solomon encode's kernel launches (N1/N2), the proof's sha256 and the
+port's verdict on the serialized proof with its seconds (after the prove,
+outside its timings).  Needs a CUDA device."""
 
 import argparse
 import hashlib
@@ -39,7 +40,7 @@ def main() -> int:
     sys.path.insert(0, os.getcwd())
     import zigz_tpu_torch as zt
     from zigz_tpu_torch.device import card_info
-    from zigz_tpu_torch.ops import poseidon2, zerocheck_dev_ext
+    from zigz_tpu_torch.ops import ntt_dev, poseidon2, zerocheck_dev_ext
     from zigz_tpu_torch.verifier.benchmarks import nop_program, timed_prove
 
     print(card_info()["nvidia_smi"], flush=True)
@@ -50,6 +51,7 @@ def main() -> int:
         zerocheck_dev_ext.reset_counters()
         poseidon2.LAUNCHES.update(leaves=0, merge=0, absorb=0)
         poseidon2.PERMUTATIONS["count"] = 0
+        ntt_dev.LAUNCHES.update(tile=0, stage=0)
         prover = zt.Prover(zt.BabyBear, seed=0, device="cuda", protocol_version=args.version)
         proof, wall, peaks = timed_prove(prover, program, 2 << args.log2_steps)
         timings = {k: v for k, v in prover.last_timings.items() if isinstance(v, (int, float, str))}
@@ -64,7 +66,7 @@ def main() -> int:
                           "host_tail": zerocheck_dev_ext.HOST_TAIL_EXT,
                           "zerocheck_device": dict(zerocheck_dev_ext.DEVICE_PROVES),
                           "p2_launches": dict(poseidon2.LAUNCHES),
-                          "p2_permutations": poseidon2.PERMUTATIONS["count"],
+                          "p2_permutations": poseidon2.PERMUTATIONS["count"], "ntt_launches": dict(ntt_dev.LAUNCHES),
                           "proof_bytes": len(data), "sha256": hashlib.sha256(data).hexdigest(),
                           "verdict": verdict, "verify_s": verify_s, **timings}), flush=True)
     return 0

@@ -27,7 +27,7 @@ from zigz_tpu_torch.core.hash import FiatShamirTranscript
 from zigz_tpu_torch.lookups import pipeline_lasso
 from zigz_tpu_torch.commitments import ligero
 from zigz_tpu_torch.core import poseidon2 as p2_host
-from zigz_tpu_torch.ops import ext4_dev, field64, keccak, ligero_dev, poseidon2, witness_dev, zerocheck_dev_ext
+from zigz_tpu_torch.ops import ext4_dev, field64, keccak, ligero_dev, ntt_dev, poseidon2, witness_dev, zerocheck_dev_ext
 from zigz_tpu_torch.proofs.zerocheck import ZerocheckExtProver, count_zerocheck_proofs
 
 pytestmark = pytest.mark.cuda
@@ -223,6 +223,25 @@ def test_column_sponges_match_plain_and_hashlib(cuda, r, n):
     for j in {0, n - 1}:
         want = hashlib.sha3_256(np.ascontiguousarray(words[:, j]).astype("<u4").tobytes()).digest()
         assert got[j].cpu().numpy().tobytes() == want
+
+
+@pytest.mark.parametrize("rows, n, n_out", [(1, 1, 2), (33, 4096, 4096), (33, 1, 1 << 13), (545, 2048, 1 << 14),
+                                            (3, 1 << 16, 1 << 16), (544, 1 << 13, 1 << 16), (0, 8, 1 << 14)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_ntt_kernels_match_their_plain_version(cuda, rows, n, n_out, dtype):
+    """N1 and N2 (``encode_rows`` on the card) against ``_encode_rows_plain``
+    on the same inputs, byte for byte, with N1 once and N2 once a stage of
+    ``n2_stages`` for a block with rows, no launch for one without."""
+    mat = _words(rows, n, seed=rows + n).to(dtype)
+    before = dict(ntt_dev.LAUNCHES)
+    got = ntt_dev.encode_rows(mat.to(cuda), n_out)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and tuple(got.shape) == (rows, n_out)
+    assert torch.equal(got.cpu(), ntt_dev._encode_rows_plain(mat, n_out))
+    log_k = (n_out // n).bit_length() - 1
+    assert len(ntt_dev.n2_stages(n, n_out)) == max(0, n_out.bit_length() - 1 - max(13, log_k))
+    want = (1, len(ntt_dev.n2_stages(n, n_out))) if rows else (0, 0)
+    assert (ntt_dev.LAUNCHES["tile"] - before["tile"], ntt_dev.LAUNCHES["stage"] - before["stage"]) == want
 
 
 def test_mixed_commit_on_the_card_matches_the_cpu(cuda):

@@ -17,7 +17,8 @@
   ``p2_absorb``; ``permute_device``) on a CUDA tensor build the kernels or
   raise: no nvcc, a failing nvcc, a library that does not load.  So do the
   64-bit fold's (E1: ``field64.fold_lsb_u64``, ``batch_eval_lsb_u64`` and
-  ``mle.batch_eval_lsb`` over Goldilocks and Mersenne61).
+  ``mle.batch_eval_lsb`` over Goldilocks and Mersenne61) and the
+  Reed-Solomon encode's (N1/N2: ``ntt_dev.encode_rows``).
 * A device advice twin or the Poseidon2 column sponge that fails makes
   the commit and the prove raise; both commits of a v2, v3 and v4 prove take
   the ``"stream-dev"`` path.
@@ -133,18 +134,20 @@ def test_build_raises_when_the_library_does_not_load(fresh_build, monkeypatch):
 def test_build_hashes_the_sources():
     units, headers = _build._sources()
     assert [p.name for p in units] == ["field64_kernels.cu", "field_kernels.cu", "ligero_kernels.cu",
-                                       "poseidon2_kernels.cu", "sha3_kernels.cu", "zerocheck_kernels.cu"]
-    assert [p.name for p in headers] == ["babybear.cuh", "dag_round.cuh", "field64.cuh", "keccak.cuh",
+                                       "ntt_kernels.cu", "poseidon2_kernels.cu", "sha3_kernels.cu",
+                                       "zerocheck_kernels.cu"]
+    assert [p.name for p in headers] == ["babybear.cuh", "dag_round.cuh", "field64.cuh", "keccak.cuh", "ntt.cuh",
                                          "poseidon2.cuh"]
     path = _build._library_path(units, headers)
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
-@pytest.mark.parametrize("header", ["field64.cuh", "keccak.cuh"])
+@pytest.mark.parametrize("header", ["field64.cuh", "keccak.cuh", "ntt.cuh"])
 def test_library_hash_covers_each_header(header, tmp_path):
     """An edit of a header that only a unit includes (field64.cuh, E1's
-    arithmetic) names another library, so the edit is rebuilt."""
+    arithmetic; ntt.cuh, N1's and N2's) names another library, so the edit
+    is rebuilt."""
     units, headers = _build._sources()
     copies = []
     for path in headers:
@@ -252,6 +255,24 @@ def test_field64_wrappers_on_cuda_build_the_kernel_or_raise(entry, library, fres
             points = torch.zeros((2, 2), dtype=torch.int64).as_subclass(_OnCuda)
             mle.batch_eval_lsb(values, points, field64.GOLDILOCKS_P)
     assert field64.LAUNCHES == before
+
+
+@pytest.mark.parametrize("rows, dtype", [(3, torch.int32), (3, torch.int64), (0, torch.int32)])
+@pytest.mark.parametrize("library", sorted(_UNBUILDABLE))
+def test_encode_rows_on_cuda_builds_the_kernels_or_raises(library, rows, dtype, fresh_build, monkeypatch):
+    """N1/N2's wrapper on a CUDA tensor raises where the library cannot be
+    built or loaded, a block with no rows too; it never encodes with the
+    plain version there, and counts no launch."""
+    from zigz_tpu_torch.ops import ntt_dev
+
+    body, match = _UNBUILDABLE[library]
+    nvcc = None if body is None else _fake_nvcc(fresh_build, body)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: nvcc)
+    monkeypatch.setattr(ntt_dev, "_encode_rows_plain", None)  # a call would raise TypeError, not the build's error
+    before = dict(ntt_dev.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError, match=match):
+        ntt_dev.encode_rows(torch.zeros((rows, 16), dtype=dtype).as_subclass(_OnCuda), 128)
+    assert ntt_dev.LAUNCHES == before
 
 
 def test_poseidon2_permutation_and_sponge_on_cuda_reach_the_kernel(fresh_build, monkeypatch):

@@ -18,6 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "zigz_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "__graft_entry_torch__.py",
                                         ROOT / "scripts" / "torch_group_phases.py",
                                         ROOT / "scripts" / "torch_zerocheck_kernels.py",
+                                        ROOT / "scripts" / "torch_ntt_kernels.py",
                                         ROOT / "tests" / "torch_group_checks.py"]
 
 

@@ -21,9 +21,10 @@ hash.  ``LAUNCHES`` counts kernel launches.
 
 The streamed commit (:func:`sha3_columns_stream`) keeps the JAX package's
 structure: the input rows are encoded in blocks of ``_STREAM_BLOCK_WORDS``
-rows and each block is absorbed as it is encoded, so the (rows, n_e)
-encoded matrix never exists whole and the transient stays flat in the row
-count.  The openings re-encode the same blocks and keep only the opened
+rows (ops/ntt_dev.py ``encode_rows``: kernels N1 and N2 on the card, whose
+int32 output K5 reads as it lies) and each block is absorbed as it is
+encoded, so the (rows, n_e) encoded matrix never exists whole and the
+transient stays flat in the row count.  The openings re-encode the same blocks and keep only the opened
 columns (:class:`StreamedEncoded`).  The TPU kernel's ``n % 1024`` column
 padding is a tile constraint and is not carried over.
 """

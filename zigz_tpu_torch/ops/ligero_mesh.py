@@ -7,10 +7,10 @@ collectives written out:
 * the (rows, n) input matrix is padded with zero rows to a multiple of D and
   cut CONTIGUOUSLY by rows: every rank holds the host matrix whole and
   uploads only its own rows;
-* each rank Reed-Solomon-encodes its rows (ops/ntt_dev.py ``encode_rows``;
-  rows are independent, so the encode needs no exchange), in stream blocks
-  of ``_STREAM_BLOCK_WORDS`` rows, so the int64 transient of the encode stays
-  one block whatever the row count;
+* each rank Reed-Solomon-encodes its rows (ops/ntt_dev.py ``encode_rows``,
+  kernels N1 and N2 on the card; rows are independent, so the encode needs
+  no exchange), in stream blocks of ``_STREAM_BLOCK_WORDS`` rows, so the
+  encoded transient stays one block whatever the row count;
 * ONE ``all_to_all_single`` per block turns the block's row shards into
   column shards (parallel/dist.py ``rows_to_columns``); the received chunks
   land at their rows of this rank's (rows_pad, n_e / D) int32 column shard;

@@ -1,27 +1,32 @@
-"""Reed-Solomon row encode of the Ligero commitments, in torch ops.
+"""Reed-Solomon row encode of the Ligero commitments: CUDA kernels N1 and N2
+and their plain PyTorch version.
 
 Counterpart of zigz_tpu/ops/ntt_dev.py ``encode_rows_device`` (jnp/XLA in
 the JAX package, not Pallas).  Every row's n values are coefficients,
 zero-padded to n_out, and evaluated over the size-n_out subgroup with the
 same root of unity, twiddles and bit-reversed-input DIT as the host encoder
 (zigz_tpu/commitments/ligero.py ``_ntt_pow2_numpy``), so the canonical
-outputs are identical.
+outputs are identical.  Because the input is zero-padded by a factor
+k = n_out / n, the first log2(k) stages only copy each value into its whole
+group: both versions start from that broadcast and skip them.
 
-Arithmetic is canonical int64 (a product of two values below p is below
-2^62).  The JAX package's four-step layout exists to keep every butterfly
-stage on the TPU's 128-lane axis; the port runs the plain radix-2 stages,
-in place on each slab.  Because the input is zero-padded by a factor
-n_out / n, the first log2(n_out / n) stages only copy each value into its
-whole group: the port starts from that broadcast and skips them.
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches N1
+and N2 (csrc/ntt_kernels.cu over csrc/ntt.cuh) or raises.  There is no
+fallback from one to the other and no size gate.  N1 runs the stages inside
+each tile of 2^13 outputs in shared memory (csrc/ntt.cuh ``kTile``), N2 one
+global stage a launch (``n2_stages``, the split of the header's plan):
+1 + max(0, log2 n_out - max(13, log2 k)) launches a call, none for a call
+with no rows.  ``LAUNCHES`` counts them.
 
-Every size is encoded here, on the tensor's device: there is no host branch
-for small n_out.  Rows are processed in slabs of at most ``_SLAB_ELEMS``
-int64 values, so the transient stays bounded whatever the row count.  A CUDA
-NTT kernel is later work, if the card shows the encode is the wall.
+The plain version works in canonical int64 (a product of two values below p
+is below 2^62), radix-2 stages in place on slabs of at most ``_SLAB_ELEMS``
+values, so its transient stays bounded whatever the row count.  The kernels
+work on canonical u32 with the twiddles in Montgomery form.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -29,12 +34,21 @@ import torch
 
 from ..commitments.ligero import _bit_reverse_indices, _twiddles
 
+from . import _build
 from .babybear import P
 
-__all__ = ["encode_rows"]
+__all__ = ["encode_rows", "n2_stages", "LAUNCHES"]
 
-# Transient int64 slab per butterfly sweep: 2 GiB.
+# Kernel launches since the last reset; the plain version does not count.
+LAUNCHES = {"tile": 0, "stage": 0}
+
+_MAX_OUT = 1 << 27  # BabyBear's two-adicity: the largest subgroup
+
+# Transient int64 slab per butterfly sweep of the plain version: 2 GiB.
 _SLAB_ELEMS = 1 << 28
+
+
+# -- the plain version -------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=16)
@@ -61,14 +75,9 @@ def _encode_slab(mat: torch.Tensor, n_out: int, br, tws) -> torch.Tensor:
     return x.view(rows, n_out).to(torch.int32)
 
 
-def encode_rows(mat: torch.Tensor, n_out: int) -> torch.Tensor:
-    """(R, n) canonical int32 or int64 -> (R, n_out) canonical int32 on the
-    same device; n and n_out are powers of two, n <= n_out, 2 <= n_out."""
-    if mat.dim() != 2 or mat.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"encode_rows: expected a (R, n) int32/int64 tensor, got {mat.dtype} {tuple(mat.shape)}")
+def _encode_rows_plain(mat: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Plain version of N1 and N2: int64 torch ops, in slabs of rows."""
     rows, n = mat.shape
-    if n < 1 or n & (n - 1) or n_out < max(n, 2) or n_out & (n_out - 1):
-        raise ValueError(f"encode_rows: n={n}, n_out={n_out} must be powers of two with n <= n_out, n_out >= 2")
     br, tws = _tables(n, n_out, mat.device)
     slab = max(1, _SLAB_ELEMS // n_out)
     if rows <= slab:
@@ -77,3 +86,70 @@ def encode_rows(mat: torch.Tensor, n_out: int) -> torch.Tensor:
     for s in range(0, rows, slab):
         out[s : s + slab] = _encode_slab(mat[s : s + slab], n_out, br, tws)
     return out
+
+
+# -- the kernels -------------------------------------------------------------
+
+
+def n2_stages(n: int, n_out: int) -> range:
+    """The global stages N2 runs for an (R, n) -> (R, n_out) encode, one
+    launch each, as csrc/ntt.cuh's plan splits the stages between the passes
+    (``zigz_ntt_stages``): from max(log2 of the tile, log2 k) to
+    log2 n_out - 1.  Builds the kernels' library or raises."""
+    first, end = ctypes.c_int64(), ctypes.c_int64()
+    _build.launch("zigz_ntt_stages", n, n_out, ctypes.byref(first), ctypes.byref(end))
+    return range(first.value, end.value)
+
+
+def _mont_twiddles_np(n_out: int) -> np.ndarray:
+    """The n_out - 1 twiddles of every stage end to end (stage s at offset
+    2^s - 1) in Montgomery form, x 2^32 mod p, as int32."""
+    tw = np.concatenate(_twiddles(n_out)).astype(np.uint64)
+    return ((tw << np.uint64(32)) % np.uint64(P)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def _mont_twiddles(n_out: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_mont_twiddles_np(n_out)).to(device)
+
+
+def encode_rows(mat: torch.Tensor, n_out: int) -> torch.Tensor:
+    """(R, n) canonical int32 or int64 -> (R, n_out) canonical int32 on the
+    same device; n and n_out are powers of two, n <= n_out, 2 <= n_out <=
+    2^27."""
+    if mat.dim() != 2 or mat.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"encode_rows: expected a (R, n) int32/int64 tensor, got {mat.dtype} {tuple(mat.shape)}")
+    rows, n = mat.shape
+    if n < 1 or n & (n - 1) or n_out < max(n, 2) or n_out & (n_out - 1) or n_out > _MAX_OUT:
+        raise ValueError(f"encode_rows: n={n}, n_out={n_out} must be powers of two with n <= n_out, "
+                         f"2 <= n_out <= 2^27")
+    if mat.device.type == "cpu":
+        return _encode_rows_plain(mat, n_out)
+    if mat.device.type != "cuda":
+        raise ValueError(f"encode_rows: unsupported device {mat.device}")
+    _build.load()  # build, or raise, before anything touches the card
+    out = torch.empty((rows, n_out), dtype=torch.int32, device=mat.device)
+    if rows == 0:
+        return out
+    stages = n2_stages(n, n_out)
+    words = mat.to(torch.int32).contiguous()
+    tw = _mont_twiddles(n_out, mat.device)
+    with torch.cuda.device(mat.device):
+        stream = torch.cuda.current_stream(mat.device).cuda_stream
+        _launch_tile(words, tw, out, stream)
+        for stage in stages:
+            _launch_stage(out, tw, stage, stream)
+    return out
+
+
+def _launch_tile(words: torch.Tensor, tw: torch.Tensor, out: torch.Tensor, stream: int) -> None:
+    """N1 on contiguous (R, n) int32 words into (R, n_out)."""
+    _build.launch("zigz_ntt_tile", words.data_ptr(), tw.data_ptr(), out.data_ptr(), words.shape[0],
+                  words.shape[1], out.shape[1], stream)
+    LAUNCHES["tile"] += 1
+
+
+def _launch_stage(out: torch.Tensor, tw: torch.Tensor, stage: int, stream: int) -> None:
+    """N2: stage ``stage`` of every row of ``out``, in place."""
+    _build.launch("zigz_ntt_stage", out.data_ptr(), tw.data_ptr(), out.shape[0], out.shape[1], stage, stream)
+    LAUNCHES["stage"] += 1

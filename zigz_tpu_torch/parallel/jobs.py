@@ -59,20 +59,21 @@ def _sha(data: bytes) -> str:
 
 def reset_counters() -> None:
     """Zero the kernels' launch counts and the collectives' counts."""
-    from ..ops import keccak, ligero_dev
+    from ..ops import keccak, ligero_dev, ntt_dev
 
-    for counter in (keccak.LAUNCHES, ligero_dev.LAUNCHES, dist.COLLECTIVES):
+    for counter in (keccak.LAUNCHES, ligero_dev.LAUNCHES, ntt_dev.LAUNCHES, dist.COLLECTIVES):
         for key in counter:
             counter[key] = 0
 
 
 def counters() -> dict:
     """The kernels' launches and the collectives since the last reset."""
-    from ..ops import keccak, ligero_dev
+    from ..ops import keccak, ligero_dev, ntt_dev
 
     return {
         "K1": keccak.LAUNCHES["leaves"], "K2": keccak.LAUNCHES["merge"],
         "K4": ligero_dev.LAUNCHES["columns"], "K5": ligero_dev.LAUNCHES["absorb"],
+        "N1": ntt_dev.LAUNCHES["tile"], "N2": ntt_dev.LAUNCHES["stage"],
         "collectives": dict(dist.COLLECTIVES),
     }
 
