@@ -173,7 +173,7 @@ def _counters_reset() -> None:
 
     keccak.LAUNCHES.update(leaves=0, merge=0)
     ligero_dev.LAUNCHES.update(columns=0, absorb=0)
-    ntt_dev.LAUNCHES.update(tile=0, stage=0)
+    ntt_dev.LAUNCHES.update(dict.fromkeys(ntt_dev.LAUNCHES, 0))
     poseidon2.LAUNCHES.update(leaves=0, merge=0, absorb=0)
     poseidon2.PERMUTATIONS["count"] = 0
     zerocheck_dev_ext.reset_counters()
@@ -189,7 +189,7 @@ def _counters(proof, version: int) -> dict:
     if version >= 2:
         counts.update({
             "K4": ligero_dev.LAUNCHES["columns"], "K5": ligero_dev.LAUNCHES["absorb"],
-            "N1": ntt_dev.LAUNCHES["tile"], "N2": ntt_dev.LAUNCHES["stage"],
+            "N1": ntt_dev.LAUNCHES["tile"], "N2": ntt_dev.LAUNCHES["pass"],
             "P1": poseidon2.LAUNCHES["leaves"], "P2": poseidon2.LAUNCHES["merge"],
             "P3": poseidon2.LAUNCHES["absorb"], "p2_permutations": poseidon2.PERMUTATIONS["count"],
             "zerochecks": count_zerocheck_proofs(proof),

@@ -108,18 +108,21 @@ the last line:
      (``ntt_kernel_phase``), byte error 0: (544, 2^16) -> 2^19 (a stream
      block of the v2-v4 2^20 commits), (544, 2^17) -> 2^20 (the same at
      2^22 steps) and (688, 2^16) -> 2^19 (``ligero_commit_device`` at
-     2^20), and 0, 1, 33 and 545 rows x n_out 2, 2^12, 2^13 and 2^14 (the
-     tile of 2^13 outputs, its half and its double) x n 1, n_out / 8 and
-     n_out with 0 and p - 1 among the values; each call's launches N1 once
-     and N2 once a stage of ``n2_stages``, the header's plan (none for no
-     rows).  At the three main shapes the encode, N1 alone and each N2
-     stage by CUDA events, the plain version's ms, and the bound: the
-     butterflies x one butterfly's SM clocks (``bound_chain_counts``: phase
-     1 builds csrc/measure/bound_chains.cu, which is not a unit of the
-     kernels' library, beside the kernels' build, and counts the difference
-     of chains of 64 and 32 butterflies in the SASS), against the bytes;
-     ptxas's registers and spills.  No PyTorch call computes a BabyBear NTT (``library_ms``
-     null).
+     2^20); (3, 2^20) -> 2^22 and (1, 2^14) -> 2^27, whose global stages
+     take N2 two passes, and (1, 2^8) -> 2^27; and 0, 1, 33 and 545 rows x
+     n_out 2, 2^12, 2^13 and 2^14 (the tile of 2^13 outputs, its half and
+     its double) x n 1, n_out / 8 and n_out with 0 and p - 1 among the
+     values; each call's launches N1 once and N2 once a pass of
+     ``n2_passes``, the header's plan (none for no rows).  At the timed
+     shapes the encode, N1 alone and each N2 pass by CUDA events, the plain
+     version's ms, and the bounds: the butterflies x one butterfly's SM
+     clocks (``bound_chain_counts``: phase 1 builds
+     csrc/measure/bound_chains.cu, which is not a unit of the kernels'
+     library, beside the kernels' build, and counts the difference of
+     chains of 64 and 32 butterflies in the SASS), against the bytes (an N2
+     pass: all of its stages' butterflies against one read and one write of
+     the block); ptxas's registers and spills.  No PyTorch call computes a
+     BabyBear NTT (``library_ms`` null).
   2b. the bench's multiply-chain kernel (csrc/field_kernels.cu, the
      headline of bench_torch.py; no TPU counterpart): ``babybear.mul_chain``
      against ``_mul_chain_plain`` on the card at 2^22 elements and at the
@@ -337,6 +340,15 @@ ALL_SASS_OPCODE = r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*)"
 # An opcode whose pipe is not known for certain (VIADD, MOV) counts in the
 # issue slots only.
 SM_COUNT = 132
+# The kernels of the Reed-Solomon encode as ptxas names them: the templates'
+# instances the main path launches, at fixed shapes (N1 a tile of 2^13 with
+# k = 8, 32 values a thread; N2 the pass of stages 13..18, 16 values).
+NTT_KERNELS = {"N1": "ntt_tile_kernelILi5EN8zigz_ntt5FixedILi13ELi3ELi3E",
+               "N2": "ntt_pass_kernelILi4EN8zigz_ntt5FixedILi11ELi5ELi13E"}
+# N2's launches the slice's proves must make: 1 a block (one pass at n_e =
+# 2^19), each block encoded at commit time and again in the openings.
+N2_LAUNCHES = {"v2-nop-2^20": 18, "v3-nop-2^20": 18, "v4-nop-2^20": 22, "v2-nop-2^16": 8, "v3-nop-2^16": 8,
+               "ligero_commit_device": 1, "rank of the sharded v2-nop-2^20": 10}
 ISSUE_LANES = 128  # thread instructions issued a clock an SM
 P2_PIPES = {"ALU": (("IADD3", "LOP3", "ISETP", "SEL", "SHF", "LEA", "PRMT", "IMNMX", "PLOP3"), 64),
             "FMA": (("IMAD",), 64)}
@@ -1020,19 +1032,23 @@ def ntt_kernel_phase(dev, max_sm_mhz: float, butterfly: dict, build_log: str) ->
     main path's shapes, (544, 2^16) -> 2^19 (a stream block of the v2-v4
     2^20 commits), (544, 2^17) -> 2^20 (the same at 2^22 steps, where
     ``choose_split_mixed`` gives n = 2^17) and (688, 2^16) -> 2^19
-    (``ligero_commit_device`` of the 43 witness MLEs at 2^20), and at R in
-    {0, 1, 33, 545} rows x n_out in {2, 2^12, 2^13, 2^14} x n in {1,
-    n_out / 8, n_out}, the values 0 and p - 1 first in every matrix; each
-    call's launches are N1 once and N2 once a stage of ``n2_stages``.  At
-    the main shapes: the
-    whole encode, N1 alone and each N2 stage by CUDA events, the plain
-    version's ms, and the bound: the butterflies x the SM clocks of one
+    (``ligero_commit_device`` of the 43 witness MLEs at 2^20); at the shapes
+    whose global stages take N2 two passes, (3, 2^20) -> 2^22 (5 + 4) and
+    (1, 2^14) -> 2^27 (7 + 7), and one of 8 stages after a broadcast-only
+    N1, (1, 2^8) -> 2^27; and at R in {0, 1, 33, 545} rows x n_out in {2,
+    2^12, 2^13, 2^14} x n in {1, n_out / 8, n_out}, the values 0 and p - 1
+    first in every matrix; each call's launches are N1 once and N2 once a
+    pass of ``n2_passes``.  At the main shapes and the two-pass ones: the
+    whole encode, N1 alone and each N2 pass by CUDA events, the plain
+    version's ms, and the bounds: the butterflies x the SM clocks of one
     butterfly's arithmetic (``butterfly``, from bound_chain_counts) over
-    SM_COUNT SMs at ``max_sm_mhz``, against the bytes (coefficients and
-    twiddles read once, the output written once; an N2 stage reads and
-    writes the output).  No PyTorch call computes a BabyBear NTT
-    (``library_ms`` null).  Returns the entries ``ntt`` (the whole encode at
-    each main shape), ``n1``, ``n2`` (the first main shape) and ``ptxas``."""
+    SM_COUNT SMs at ``max_sm_mhz``, against the bytes: the whole encode and
+    N1 read the coefficients and their twiddles once and write the output
+    once; an N2 pass does every butterfly of its stages and reads and writes
+    the output once, with its stages' twiddles.  No PyTorch call computes a
+    BabyBear NTT (``library_ms`` null).  Returns the entries ``ntt`` (the
+    whole encode at each timed shape), ``n1``, ``n2`` (the first main shape)
+    and ``ptxas``."""
     import torch
 
     from zigz_tpu_torch.ops import ntt_dev
@@ -1070,16 +1086,18 @@ def ntt_kernel_phase(dev, max_sm_mhz: float, butterfly: dict, build_log: str) ->
 
     def check(r, n, n_out):
         """encode_rows on the card == the plain version (byte error), with
-        N1's launch and N2's for each stage of n2_stages."""
+        N1's launch and N2's for each pass of n2_passes."""
         mat = coefficients(r, n)
         before = dict(ntt_dev.LAUNCHES)
         got = ntt_dev.encode_rows(mat, n_out)
-        launched = (ntt_dev.LAUNCHES["tile"] - before["tile"], ntt_dev.LAUNCHES["stage"] - before["stage"])
-        want = (1, len(ntt_dev.n2_stages(n, n_out))) if r else (0, 0)
+        launched = (ntt_dev.LAUNCHES["tile"] - before["tile"], ntt_dev.LAUNCHES["pass"] - before["pass"])
+        want = (1, len(ntt_dev.n2_passes(n, n_out))) if r else (0, 0)
         if launched != want or tuple(got.shape) != (r, n_out) or got.dtype != torch.int32:
             raise AssertionError(f"encode_rows ({r}, {n}) -> {n_out}: launches {launched}, not {want}, or "
                                  f"{got.dtype} {tuple(got.shape)}")
-        return mat, byte_err(got, ntt_dev._encode_rows_plain(mat, n_out))
+        err = byte_err(got, ntt_dev._encode_rows_plain(mat, n_out))
+        del got
+        return mat, err
 
     err = 0
     for r in (0, 1, 33, 545):
@@ -1092,50 +1110,57 @@ def ntt_kernel_phase(dev, max_sm_mhz: float, butterfly: dict, build_log: str) ->
     results = {"ntt": []}
     for r, n, n_out, what in ((544, 1 << 16, 1 << 19, "a stream block of the v2-v4 2^20 commits"),
                               (544, 1 << 17, 1 << 20, "a stream block at 2^22 steps"),
-                              (688, 1 << 16, 1 << 19, "ligero_commit_device, 43 MLEs at 2^20")):
+                              (688, 1 << 16, 1 << 19, "ligero_commit_device, 43 MLEs at 2^20"),
+                              (3, 1 << 20, 1 << 22, "N2 in two passes"),
+                              (1, 1 << 14, 1 << 27, "the largest subgroup, N2 in two passes"),
+                              (1, 1 << 8, 1 << 27, "the largest subgroup, N1 a broadcast, N2 one pass of 8")):
         mat, err_here = check(r, n, n_out)
         err = max(err, err_here)
         log_k = (n_out // n).bit_length() - 1
         log_out = n_out.bit_length() - 1
-        stages = ntt_dev.n2_stages(n, n_out)  # N1 runs stages log_k .. stages.start - 1
+        passes = ntt_dev.n2_passes(n, n_out)
+        first = passes[0].start if passes else log_out  # N1 runs stages log_k .. first - 1
         tw = ntt_dev._mont_twiddles(n_out, dev)
         out = torch.empty((r, n_out), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         half = r * n_out // 2
+        reps = 10 if r > 1 else 3
         entry = dict(
             max_abs_err=err_here, shape=f"({r}, {n}) -> ({r}, {n_out}) [{what}]",
-            ms=event_ms(lambda: ntt_dev.encode_rows(mat, n_out), 10),
+            ms=event_ms(lambda: ntt_dev.encode_rows(mat, n_out), reps),
             plain_ms=event_ms(lambda: ntt_dev._encode_rows_plain(mat, n_out), 2),
-            launches_a_call=1 + len(stages),
-            n1_ms=event_ms(lambda: ntt_dev._launch_tile(mat, tw, out, stream), 10),
-            n2_ms=[event_ms(lambda: ntt_dev._launch_stage(out, tw, s, stream), 10) for s in stages],
-            n1_stages=[log_k, stages.start - 1] if log_k < stages.start else None,
-            n2_stages=[stages[0], stages[-1]] if stages else None,
-            butterflies=half * (log_out - log_k),
-            **bound(half * (log_out - log_k), 4 * (r * n + n_out - 1 + r * n_out)))
-        n1 = bound(half * max(0, stages.start - log_k), 4 * (r * n + (1 << stages.start) - 1 + r * n_out))
-        n2 = bound(half, 4 * (2 * r * n_out + n_out // 2))  # one stage
-        entry.update(n1_bound_ms=n1["bound_ms"], n1_bound_by=n1["bound_by"], n2_bound_ms=n2["bound_ms"],
-                     n2_bound_by=n2["bound_by"])
+            launches_a_call=1 + len(passes),
+            n1_ms=event_ms(lambda: ntt_dev._launch_tile(mat, tw, out, stream), reps),
+            n2_ms=[event_ms(lambda: ntt_dev._launch_pass(out, tw, stages, stream), reps) for stages in passes],
+            n1_stages=[log_k, first - 1] if log_k < first else None,
+            n2_passes=[[stages[0], stages[-1]] for stages in passes],
+            butterflies=half * max(0, log_out - log_k),
+            **bound(half * max(0, log_out - log_k), 4 * (r * n + n_out - 1 + r * n_out)))
+        n1 = bound(half * max(0, first - log_k), 4 * (r * n + (1 << first) - 1 + r * n_out))
+        n2 = [bound(half * len(stages), 4 * (2 * r * n_out + (1 << stages.stop) - (1 << stages.start)))
+              for stages in passes]
+        entry.update(n1_bound_ms=n1["bound_ms"], n1_bound_by=n1["bound_by"],
+                     n2_bound_ms=[b["bound_ms"] for b in n2], n2_bound_by=[b["bound_by"] for b in n2])
         results["ntt"].append(entry)
         log(f"phase 2d N1/N2 {entry['shape']}: kernel == plain (byte err {err_here}); encode {entry['ms']} ms in "
-            f"{entry['launches_a_call']} launches (N1 {entry['n1_ms']} ms, stages {entry['n1_stages']}; N2 "
-            f"{entry['n2_ms']} ms, stages {entry['n2_stages']}), plain {entry['plain_ms']} ms; bound "
-            f"{entry['bound_ms']} ms by {entry['bound_by']} ({entry['butterflies']} butterflies x "
-            f"{butterfly['sm_clocks']} SM clocks, set by {butterfly['limb']}: {entry['bound_ms'] / entry['ms']:.1%}); "
-            f"N1 bound {entry['n1_bound_ms']} ms, an N2 stage's {entry['n2_bound_ms']} ms")
+            f"{entry['launches_a_call']} launches (N1 {entry['n1_ms']} ms, stages {entry['n1_stages']}, bound "
+            f"{entry['n1_bound_ms']} ms by {entry['n1_bound_by']}: {entry['n1_bound_ms'] / entry['n1_ms']:.1%}; N2 "
+            f"{entry['n2_ms']} ms, passes {entry['n2_passes']}, bounds {entry['n2_bound_ms']} ms by "
+            f"{entry['n2_bound_by']}: {[f'{b / t:.1%}' for b, t in zip(entry['n2_bound_ms'], entry['n2_ms'])]}), "
+            f"plain {entry['plain_ms']} ms; bound {entry['bound_ms']} ms by {entry['bound_by']} "
+            f"({entry['butterflies']} butterflies x {butterfly['sm_clocks']} SM clocks, set by {butterfly['limb']}: "
+            f"{entry['bound_ms'] / entry['ms']:.1%})")
         del mat, out
         torch.cuda.empty_cache()
     if err:
         raise AssertionError(f"N1/N2 disagree with their plain version: byte error {err}")
-    results["ptxas"] = kernel_ptxas(build_log, ("ntt_tile_kernel", "ntt_stage_kernel"))
+    results["ptxas"] = kernel_ptxas(build_log, NTT_KERNELS.values())
     for name, report in results["ptxas"].items():
         log(f"phase 2d ptxas {name}: {report['registers']} registers, stack frame {report['stack_frame_B']} B, "
             f"spill stores {report['spill_stores_B']} B, spill loads {report['spill_loads_B']} B")
     main = results["ntt"][0]
     results["n1"] = dict(main, ms=main["n1_ms"], bound_ms=main["n1_bound_ms"], bound_by=main["n1_bound_by"])
-    results["n2"] = dict(main, ms=sum(main["n2_ms"]) / len(main["n2_ms"]), bound_ms=main["n2_bound_ms"],
-                         bound_by=main["n2_bound_by"])
+    results["n2"] = dict(main, ms=main["n2_ms"][0], bound_ms=main["n2_bound_ms"][0], bound_by=main["n2_bound_by"][0])
     return results
 
 
@@ -1240,6 +1265,7 @@ def group_phases(pinned) -> dict:
 
     import torch
 
+    from zigz_tpu_torch.ops import ntt_dev
     from zigz_tpu_torch.parallel.launch import LaunchFailed, launch
 
     # -- phases 14, 15: the sharded prover, two ranks sharing the card ------
@@ -1326,6 +1352,12 @@ def group_phases(pinned) -> dict:
                         and counts["N2"] > 0):
                     raise AssertionError(f"{name} on rank {res['rank']}: K1, K2, K4, N1 or N2 was not launched: "
                                          f"{counts}")
+                # every block of the rank's rows is 2^16 -> 2^19: N2 once a block, one pass
+                n2_want = counts["N1"] * len(ntt_dev.n2_passes(1 << 16, 1 << 19))
+                if counts["N2"] != n2_want or counts["N2"] != N2_LAUNCHES[f"rank of the sharded {name}"]:
+                    raise AssertionError(f"{name} on rank {res['rank']}: N2 launched {counts['N2']} times, not "
+                                         f"{n2_want} (N1's {counts['N1']} blocks x their passes) and "
+                                         f"{N2_LAUNCHES[f'rank of the sharded {name}']}")
                 flags = {k: t.get(k) for k in ("data_commit_sharded", "advice_commit_sharded", "batch_eval_sharded",
                                                "open_sharded", "zerochecks_sharded")}
                 if flags != {"data_commit_sharded": True, "advice_commit_sharded": True, "batch_eval_sharded": True,
@@ -1947,7 +1979,7 @@ def main() -> int:
     def port_prove_v2(program, entry, segments, tape, max_steps, version=2):
         keccak.LAUNCHES.update(leaves=0, merge=0)
         ligero_dev.LAUNCHES.update(columns=0, absorb=0)
-        ntt_dev.LAUNCHES.update(tile=0, stage=0)
+        ntt_dev.LAUNCHES.update(dict.fromkeys(ntt_dev.LAUNCHES, 0))
         poseidon2.LAUNCHES.update(leaves=0, merge=0, absorb=0)
         poseidon2.PERMUTATIONS["count"] = 0
         ligero.STITCHED.update(dev_columns=0, host_rows=0)
@@ -1965,7 +1997,7 @@ def main() -> int:
         proof = prover.prove(program, entry, None, max_steps, segments, tape)
         peak = torch.cuda.max_memory_allocated(dev)  # before the checks below allocate
         counts = {**keccak.LAUNCHES, **ligero_dev.LAUNCHES, "N1": ntt_dev.LAUNCHES["tile"],
-                  "N2": ntt_dev.LAUNCHES["stage"], "P1": poseidon2.LAUNCHES["leaves"],
+                  "N2": ntt_dev.LAUNCHES["pass"], "P1": poseidon2.LAUNCHES["leaves"],
                   "P2": poseidon2.LAUNCHES["merge"], "P3": poseidon2.LAUNCHES["absorb"],
                   "p2_permutations": poseidon2.PERMUTATIONS["count"], **dag_dev.LAUNCHES, **ext4_dev.LAUNCHES}
         if counts["columns"]:
@@ -1979,11 +2011,11 @@ def main() -> int:
                 or counts["p2_permutations"]):
             raise AssertionError(f"the v{version} prove's launches are not those of its path: {counts}")
         # N1 once a 544-row block of each commit, at commit time and again in
-        # the openings (which re-encode every block), and N2 once a stage of
+        # the openings (which re-encode every block), and N2 once a pass of
         # each: no encode of the prove ran the plain version.
         shapes = [prover.last_timings[f"{c}_commit_shape"] for c in ("data", "advice")]
         blocks = sum(-(-rows // 544) for rows, _, _ in shapes)
-        n2_want = sum(2 * -(-rows // 544) * len(ntt_dev.n2_stages(n, n_e)) for rows, n, n_e in shapes)
+        n2_want = sum(2 * -(-rows // 544) * len(ntt_dev.n2_passes(n, n_e)) for rows, n, n_e in shapes)
         if (counts["N1"], counts["N2"]) != (2 * blocks, n2_want):
             raise AssertionError(f"v{version}: N1/N2 launched {counts['N1']}/{counts['N2']} times, not "
                                  f"{2 * blocks}/{n2_want} for the commits' {blocks} stream blocks, encoded twice")
@@ -2041,6 +2073,8 @@ def main() -> int:
         for name in names:
             program, entry, segments, tape, max_steps, case = load_case(name)
             data, prover, counts, peak, device_work = port_prove_v2(program, entry, segments, tape, max_steps, version)
+            if name in N2_LAUNCHES and counts["N2"] != N2_LAUNCHES[name]:
+                raise AssertionError(f"{name}: N2 launched {counts['N2']} times, not {N2_LAUNCHES[name]}")
             if name.endswith("nop-2^20"):
                 launches_at_2_20[version] = counts
                 if device_work["sweep_launches"] > 1000:
@@ -2085,17 +2119,18 @@ def main() -> int:
     rows = words(43, 1 << 18)
     columns = {name: rows[k].cpu().numpy().astype("uint64") for k, name in enumerate(names)}
     ligero_dev.LAUNCHES.update(columns=0, absorb=0)
-    ntt_dev.LAUNCHES.update(tile=0, stage=0)
+    ntt_dev.LAUNCHES.update(dict.fromkeys(ntt_dev.LAUNCHES, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     port_state = ligero_dev.ligero_commit_device(F, names, rows)
     port_s = time.perf_counter() - t0
     columns_launches = ligero_dev.LAUNCHES["columns"]
-    commit_device_ntt = {"N1": ntt_dev.LAUNCHES["tile"], "N2": ntt_dev.LAUNCHES["stage"]}
+    commit_device_ntt = {"N1": ntt_dev.LAUNCHES["tile"], "N2": ntt_dev.LAUNCHES["pass"]}
     if not columns_launches or commit_device_ntt != {
-            "N1": 1, "N2": len(ntt_dev.n2_stages(port_state.n, port_state.n_e))}:
-        raise AssertionError(f"ligero_commit_device did not launch K4, or N1 once and N2 once a stage: "
-                             f"{columns_launches}, {commit_device_ntt}")
+            "N1": 1, "N2": len(ntt_dev.n2_passes(port_state.n, port_state.n_e))} or (
+            commit_device_ntt["N2"] != N2_LAUNCHES["ligero_commit_device"]):
+        raise AssertionError(f"ligero_commit_device did not launch K4, or N1 once and N2 once a pass "
+                             f"({N2_LAUNCHES['ligero_commit_device']}): {columns_launches}, {commit_device_ntt}")
     t0 = time.perf_counter()
     ref_state = ligero_commit(F, columns, "sha3")
     ref_s = time.perf_counter() - t0
@@ -2444,8 +2479,7 @@ def main() -> int:
     # 2^20, v2 at 2^16, phase 7's ligero_commit_device and the ranks of the
     # sharded v2 2^20 prove beside them; measurements from phase 2d, where
     # the plain version is the whole encode's.
-    for key, counter, name, kernel in (("n1", "N1", "ntt_tile (N1)", "ntt_tile_kernel"),
-                                       ("n2", "N2", "ntt_stage (N2)", "ntt_stage_kernel")):
+    for key, counter, name in (("n1", "N1", "ntt_tile (N1)"), ("n2", "N2", "ntt_pass (N2)")):
         r = ntt_results[key]
         kernels_line["kernels"].append({
             "name": name, "route": "cuda", "source": "zigz_tpu_torch/csrc/ntt_kernels.cu",
@@ -2453,11 +2487,13 @@ def main() -> int:
                         "pl.pallas_call) and the port's torch-op encode",
             "tpu_kernel": None, "launches": v2_counts[counter],
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
-            "plain_of": "the whole encode, N1 and N2", "ptxas": ntt_results["ptxas"][kernel],
+            "plain_of": "the whole encode, N1 and N2", "ptxas": ntt_results["ptxas"][NTT_KERNELS[counter]],
             "launches_v3": launches_at_2_20[3][counter], "launches_v4": launches_at_2_20[4][counter],
             "launches_v2_2_16": launches_at_2_16[counter], "launches_commit_device": commit_device_ntt[counter],
             "launches_group_v2_2_20": [c[counter] for c in group_launches["v2-nop-2^20"]],
-            **({"ms_each_stage": r["n2_ms"]} if key == "n2" else {
+            **({"ms_each_pass": r["n2_ms"], "bound_ms_each_pass": r["n2_bound_ms"],
+                "bound_counts": "every butterfly of the pass's stages; one read and one write of the block"}
+               if key == "n2" else {
                 "whole_encode": [{k: e[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "launches_a_call",
                                                     "bound_ms", "bound_by", "butterflies")}
                                  for e in ntt_results["ntt"]],

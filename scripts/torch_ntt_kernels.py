@@ -43,7 +43,7 @@ def main() -> int:
     cuobjdump = os.path.join(os.path.dirname(info["nvcc"]), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", kernels.path], capture_output=True, text=True, check=True).stdout
     counts = {name: chip_smoke.issue_count(sass, name)
-              for name in ("ntt_stage_kernel", "ntt_tile_kernel", "sha3_merge_kernel", "sha3_columns_kernel",
+              for name in (*chip_smoke.NTT_KERNELS.values(), "sha3_merge_kernel", "sha3_columns_kernel",
                            "sha3_absorb_kernel", "field_mul_chain_kernel")}
     chains = chip_smoke.bound_chain_counts(info["nvcc"])
     counts.update((k, v) for k, v in chains.items() if k != "nvcc_s")

@@ -51,7 +51,7 @@ def main() -> int:
         zerocheck_dev_ext.reset_counters()
         poseidon2.LAUNCHES.update(leaves=0, merge=0, absorb=0)
         poseidon2.PERMUTATIONS["count"] = 0
-        ntt_dev.LAUNCHES.update(tile=0, stage=0)
+        ntt_dev.LAUNCHES.update(dict.fromkeys(ntt_dev.LAUNCHES, 0))
         prover = zt.Prover(zt.BabyBear, seed=0, device="cuda", protocol_version=args.version)
         proof, wall, peaks = timed_prove(prover, program, 2 << args.log2_steps)
         timings = {k: v for k, v in prover.last_timings.items() if isinstance(v, (int, float, str))}

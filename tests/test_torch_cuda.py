@@ -230,8 +230,9 @@ def test_column_sponges_match_plain_and_hashlib(cuda, r, n):
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 def test_ntt_kernels_match_their_plain_version(cuda, rows, n, n_out, dtype):
     """N1 and N2 (``encode_rows`` on the card) against ``_encode_rows_plain``
-    on the same inputs, byte for byte, with N1 once and N2 once a stage of
-    ``n2_stages`` for a block with rows, no launch for one without."""
+    on the same inputs, byte for byte, with N1 once and N2 once a pass of
+    ``n2_passes`` (8 stages at most a pass) for a block with rows, no launch
+    for one without."""
     mat = _words(rows, n, seed=rows + n).to(dtype)
     before = dict(ntt_dev.LAUNCHES)
     got = ntt_dev.encode_rows(mat.to(cuda), n_out)
@@ -239,9 +240,9 @@ def test_ntt_kernels_match_their_plain_version(cuda, rows, n, n_out, dtype):
     assert got.dtype == torch.int32 and tuple(got.shape) == (rows, n_out)
     assert torch.equal(got.cpu(), ntt_dev._encode_rows_plain(mat, n_out))
     log_k = (n_out // n).bit_length() - 1
-    assert len(ntt_dev.n2_stages(n, n_out)) == max(0, n_out.bit_length() - 1 - max(13, log_k))
-    want = (1, len(ntt_dev.n2_stages(n, n_out))) if rows else (0, 0)
-    assert (ntt_dev.LAUNCHES["tile"] - before["tile"], ntt_dev.LAUNCHES["stage"] - before["stage"]) == want
+    assert len(ntt_dev.n2_passes(n, n_out)) == -(-max(0, n_out.bit_length() - 1 - max(13, log_k)) // 8)
+    want = (1, len(ntt_dev.n2_passes(n, n_out))) if rows else (0, 0)
+    assert (ntt_dev.LAUNCHES["tile"] - before["tile"], ntt_dev.LAUNCHES["pass"] - before["pass"]) == want
 
 
 def test_mixed_commit_on_the_card_matches_the_cpu(cuda):

@@ -18,7 +18,8 @@
   raise: no nvcc, a failing nvcc, a library that does not load.  So do the
   64-bit fold's (E1: ``field64.fold_lsb_u64``, ``batch_eval_lsb_u64`` and
   ``mle.batch_eval_lsb`` over Goldilocks and Mersenne61) and the
-  Reed-Solomon encode's (N1/N2: ``ntt_dev.encode_rows``).
+  Reed-Solomon encode's (N1/N2: ``ntt_dev.encode_rows``); N1's and N2's
+  launchers raise on a launch the card refuses and count none.
 * A device advice twin or the Poseidon2 column sponge that fails makes
   the commit and the prove raise; both commits of a v2, v3 and v4 prove take
   the ``"stream-dev"`` path.
@@ -272,6 +273,37 @@ def test_encode_rows_on_cuda_builds_the_kernels_or_raises(library, rows, dtype, 
     before = dict(ntt_dev.LAUNCHES)
     with pytest.raises(_build.KernelBuildError, match=match):
         ntt_dev.encode_rows(torch.zeros((rows, 16), dtype=dtype).as_subclass(_OnCuda), 128)
+    assert ntt_dev.LAUNCHES == before
+
+
+@pytest.mark.parametrize("launcher", ["tile", "pass"])
+def test_ntt_launchers_raise_on_a_refused_launch(launcher, monkeypatch):
+    """N1's and N2's launchers return the CUDA error of a launch the card
+    refuses (a shape, a block of threads or of shared memory it does not
+    take); the wrapper raises with it and counts no launch.  The kernels set
+    no shared-memory attribute (32 KiB a block at most), so a refusal can
+    only come back from the launch itself."""
+    from zigz_tpu_torch.ops import ntt_dev
+
+    class RefusingLibrary:
+        def zigz_ntt_tile(self, *args):
+            return 1  # cudaErrorInvalidValue
+
+        zigz_ntt_pass = zigz_ntt_tile
+
+        def zigz_cuda_error_string(self, status):
+            return b"invalid argument"
+
+    monkeypatch.setattr(_build, "load", lambda: _build.Kernels(lib=RefusingLibrary(), path=None, build_s=0.0,
+                                                               log=""))
+    words, out = torch.zeros((3, 16), dtype=torch.int32), torch.zeros((3, 128), dtype=torch.int32)
+    tw = torch.zeros(127, dtype=torch.int32)
+    before = dict(ntt_dev.LAUNCHES)
+    with pytest.raises(_build.KernelLaunchError, match=f"zigz_ntt_{launcher} failed: CUDA error 1"):
+        if launcher == "tile":
+            ntt_dev._launch_tile(words, tw, out, 0)
+        else:
+            ntt_dev._launch_pass(out, tw, range(4, 7), 0)
     assert ntt_dev.LAUNCHES == before
 
 

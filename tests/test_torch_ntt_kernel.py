@@ -2,18 +2,21 @@
 csrc/ntt.cuh), held on the CPU.
 
 The header's extern "C" host entry ``zigz_ntt_encode_host``, built here by
-g++ -O0, runs the passes of the card in their order: N1 on every (row,
-tile), then each N2 stage over every row, through the same per-element
-steps the kernels call.  It is held byte for byte to the port's plain
+g++ -O0, runs the launches of the card in their order: N1 on every (row,
+tile), then each N2 pass over every (row, block), each block's register
+passes and threads in turn, through the same per-thread steps the kernels
+call.  It is held byte for byte to the port's plain
 version (``ntt_dev._encode_rows_plain``), to zigz_tpu's host encoder
 (``_ntt_pow2_numpy``) and to zigz_tpu's ``encode_rows_device`` (jnp on the
 CPU), on the same numpy inputs made from a seed, with 0 and p - 1 among the
 values: n_out in {2, 4, TILE / 2, TILE, 2 TILE, 8 TILE} x n in {1,
 n_out / 8, n_out} x R in {0, 1, 3, 33}, the card's tile; smaller tiles put
-more of the stages in N2.  The split between the passes is the header's
-(``zigz_ntt_stages``, which the wrapper reads from the card's library); it
-is held here to 1 + max(0, log2 n_out - max(log2 TILE, log2 k)) launches.
-Field values are integers: tolerance zero."""
+more of the stages in N2.  The split between the kernels and N2's passes
+is the header's (``zigz_ntt_passes``, which the wrapper reads from the
+card's library); it is held here to 1 + ceil(max(0, log2 n_out - max(log2
+TILE, log2 k)) / MAX_PASS) launches.  tests/test_torch_ntt_passes.py holds
+the pass split and the shapes of two passes and more.  Field values are
+integers: tolerance zero."""
 
 import ctypes
 import subprocess
@@ -28,6 +31,7 @@ from zigz_tpu_torch.ops import _build, ntt_dev
 
 P = 2013265921
 TILE = 1 << 13  # csrc/ntt.cuh kTile (test_the_tile_is_the_headers)
+MAX_PASS = 8  # csrc/ntt.cuh kMaxPassStages: N2's stages a launch at most
 _U32 = ctypes.POINTER(ctypes.c_uint32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 
@@ -44,8 +48,8 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def host_ntt(tmp_path_factory):
-    """csrc/ntt.cuh built for the host: encode(mat, n_out, tile) -> (status,
-    out, N2 launches)."""
+    """csrc/ntt.cuh built for the host: encode(mat, n_out, tile, max_pass) ->
+    (status, out, N2 launches)."""
     build = tmp_path_factory.mktemp("ntt_host")
     src, lib_path = build / "ntt_host.cpp", build / "libntt_host.so"
     src.write_text('#include "ntt.cuh"\n')
@@ -53,20 +57,28 @@ def host_ntt(tmp_path_factory):
                     str(src)], check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(lib_path))
     lib.zigz_ntt_encode_host.argtypes = [_U32, _U32, _U32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                                         ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+                                         ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
     lib.zigz_ntt_tile_host.restype = ctypes.c_int64
-    lib.zigz_ntt_stages.argtypes = [ctypes.c_int64, ctypes.c_int64, _I64P, _I64P]
+    lib.zigz_ntt_max_pass_host.restype = ctypes.c_int64
+    lib.zigz_ntt_passes.argtypes = [ctypes.c_int64, ctypes.c_int64, _I64P, _I64P]
 
-    def encode(mat, n_out, tile=TILE):
+    def encode(mat, n_out, tile=TILE, max_pass=MAX_PASS):
         mat = np.ascontiguousarray(mat, dtype=np.uint32)
         tw = np.ascontiguousarray(ntt_dev._mont_twiddles_np(n_out).view(np.uint32))
         out = np.zeros((mat.shape[0], n_out), dtype=np.uint32)
         stages = ctypes.c_int64(-1)
         status = lib.zigz_ntt_encode_host(mat.ctypes.data_as(_U32), tw.ctypes.data_as(_U32), out.ctypes.data_as(_U32),
-                                          mat.shape[0], mat.shape[1], n_out, tile, ctypes.byref(stages))
+                                          mat.shape[0], mat.shape[1], n_out, tile, max_pass, ctypes.byref(stages))
         return status, out, stages.value
 
+    def passes(n, n_out):
+        """(status, N2's passes as ranges) of the header's plan."""
+        bounds, count = (ctypes.c_int64 * 28)(), ctypes.c_int64(-1)
+        status = lib.zigz_ntt_passes(n, n_out, bounds, ctypes.byref(count))
+        return status, [range(bounds[i], bounds[i + 1]) for i in range(max(0, count.value))]
+
     encode.lib = lib
+    encode.passes = passes
     return encode
 
 
@@ -78,10 +90,11 @@ def _coefficients(rows, n, seed):
     return vals
 
 
-def _n2_launches(n, n_out, tile=TILE):
-    """N2's launches: the stages from max(log2 tile, log2 k) up."""
+def _n2_launches(n, n_out, tile=TILE, max_pass=MAX_PASS):
+    """N2's launches: the stages from max(log2 tile, log2 k) up, at most
+    max_pass a launch."""
     log_k = (n_out // n).bit_length() - 1
-    return max(0, n_out.bit_length() - 1 - max(tile.bit_length() - 1, log_k))
+    return -(-max(0, n_out.bit_length() - 1 - max(tile.bit_length() - 1, log_k)) // max_pass)
 
 
 def _widths():
@@ -107,8 +120,9 @@ def test_host_entry_equals_the_plain_version_and_zigz_tpu(host_ntt, n_out, n, ro
 @pytest.mark.parametrize("tile", [2, 8, 64, 512])
 @pytest.mark.parametrize("n", [1, 2, 128, 1024])
 def test_smaller_tiles_run_more_stages_in_n2(host_ntt, tile, n):
-    """The split between the passes is free: any tile gives the same bytes,
-    N2 taking the stages from max(log2 tile, log2 k) up."""
+    """The split between the kernels is free: any tile gives the same bytes,
+    N2 taking the stages from max(log2 tile, log2 k) up, in passes of at
+    most 8."""
     n_out = 1024
     mat = _coefficients(5, n, seed=tile + n)
     status, got, stages = host_ntt(mat, n_out, tile=tile)
@@ -118,6 +132,7 @@ def test_smaller_tiles_run_more_stages_in_n2(host_ntt, tile, n):
 
 def test_the_tile_is_the_headers(host_ntt):
     assert host_ntt.lib.zigz_ntt_tile_host() == TILE
+    assert host_ntt.lib.zigz_ntt_max_pass_host() == MAX_PASS
 
 
 @pytest.mark.parametrize("rows, n, n_out, tile", [
@@ -131,10 +146,10 @@ def test_refused_shapes(host_ntt, rows, n, n_out, tile):
     shapes, and the plan's query refuses their n and n_out."""
     none = ctypes.cast(None, _U32)
     stages = ctypes.c_int64(-1)
-    assert host_ntt.lib.zigz_ntt_encode_host(none, none, none, rows, n, n_out, tile, ctypes.byref(stages)) == 1
+    assert host_ntt.lib.zigz_ntt_encode_host(none, none, none, rows, n, n_out, tile, MAX_PASS,
+                                             ctypes.byref(stages)) == 1
     if rows >= 0 and tile == TILE:
-        first, end = ctypes.c_int64(-1), ctypes.c_int64(-1)
-        assert host_ntt.lib.zigz_ntt_stages(n, n_out, ctypes.byref(first), ctypes.byref(end)) == 1
+        assert host_ntt.passes(n, n_out)[0] == 1
         with pytest.raises(ValueError):
             ntt_dev.encode_rows(torch.zeros((rows, n), dtype=torch.int32), n_out)
 
@@ -153,12 +168,11 @@ def test_twiddles_in_montgomery_form(n_out):
     (TILE, TILE, range(13, 13)), (1, 1 << 15, range(15, 15)), (2, 1 << 15, range(14, 15)),
     (TILE, 2 * TILE, range(13, 14))])
 def test_n2_stages(host_ntt, n, n_out, stages):
-    """N2's stages as the header's plan gives them (``zigz_ntt_stages``, the
-    wrapper's ``n2_stages`` on the card): one launch each, after N1's one,
-    for a call with rows."""
-    first, end = ctypes.c_int64(-1), ctypes.c_int64(-1)
-    assert host_ntt.lib.zigz_ntt_stages(n, n_out, ctypes.byref(first), ctypes.byref(end)) == 0
-    assert range(first.value, end.value) == stages
+    """N2's stages as the header's plan gives them (``zigz_ntt_passes``, the
+    wrapper's ``n2_passes`` on the card): at most 8, so one launch, after
+    N1's one, for a call with rows, none where N1 runs every stage."""
+    status, passes = host_ntt.passes(n, n_out)
+    assert status == 0 and passes == ([stages] if stages else [])
 
 
 def test_no_rows_encode_to_no_rows():

@@ -84,8 +84,8 @@ _SYMBOLS = {
     "zigz_p2_absorb_blocks_per_sm": ([ctypes.POINTER(_INT)], _INT),
     "zigz_mle_fold_u64": ([_PTR, _PTR, _PTR, _I64, _I64, ctypes.c_uint64, _PTR], _INT),
     "zigz_ntt_tile": ([_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR], _INT),
-    "zigz_ntt_stage": ([_PTR, _PTR, _I64, _I64, _I64, _PTR], _INT),
-    "zigz_ntt_stages": ([_I64, _I64, ctypes.POINTER(_I64), ctypes.POINTER(_I64)], _INT),
+    "zigz_ntt_pass": ([_PTR, _PTR, _I64, _I64, _I64, _I64, _PTR], _INT),
+    "zigz_ntt_passes": ([_I64, _I64, ctypes.POINTER(_I64), ctypes.POINTER(_I64)], _INT),
     "zigz_cuda_error_string": ([_INT], ctypes.c_char_p),
 }
 # The launcher of every generated unit (csrc/dag_round.cuh).

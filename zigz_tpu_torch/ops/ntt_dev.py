@@ -13,10 +13,11 @@ group: both versions start from that broadcast and skip them.
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches N1
 and N2 (csrc/ntt_kernels.cu over csrc/ntt.cuh) or raises.  There is no
 fallback from one to the other and no size gate.  N1 runs the stages inside
-each tile of 2^13 outputs in shared memory (csrc/ntt.cuh ``kTile``), N2 one
-global stage a launch (``n2_stages``, the split of the header's plan):
-1 + max(0, log2 n_out - max(13, log2 k)) launches a call, none for a call
-with no rows.  ``LAUNCHES`` counts them.
+each tile of 2^13 outputs (csrc/ntt.cuh ``kTile``) in register passes of 5
+stages, N2 the global stages in passes of at most 8, one launch a pass
+(``n2_passes``, the split of the header's plan): 1 + ceil(max(0, log2 n_out
+- max(13, log2 k)) / 8) launches a call, 2 at the main shapes, none for a
+call with no rows.  ``LAUNCHES`` counts them.
 
 The plain version works in canonical int64 (a product of two values below p
 is below 2^62), radix-2 stages in place on slabs of at most ``_SLAB_ELEMS``
@@ -37,12 +38,13 @@ from ..commitments.ligero import _bit_reverse_indices, _twiddles
 from . import _build
 from .babybear import P
 
-__all__ = ["encode_rows", "n2_stages", "LAUNCHES"]
+__all__ = ["encode_rows", "n2_passes", "LAUNCHES"]
 
 # Kernel launches since the last reset; the plain version does not count.
-LAUNCHES = {"tile": 0, "stage": 0}
+LAUNCHES = {"tile": 0, "pass": 0}
 
-_MAX_OUT = 1 << 27  # BabyBear's two-adicity: the largest subgroup
+_LOG_MAX_OUT = 27  # BabyBear's two-adicity: the largest subgroup
+_MAX_OUT = 1 << _LOG_MAX_OUT
 
 # Transient int64 slab per butterfly sweep of the plain version: 2 GiB.
 _SLAB_ELEMS = 1 << 28
@@ -91,14 +93,15 @@ def _encode_rows_plain(mat: torch.Tensor, n_out: int) -> torch.Tensor:
 # -- the kernels -------------------------------------------------------------
 
 
-def n2_stages(n: int, n_out: int) -> range:
-    """The global stages N2 runs for an (R, n) -> (R, n_out) encode, one
-    launch each, as csrc/ntt.cuh's plan splits the stages between the passes
-    (``zigz_ntt_stages``): from max(log2 of the tile, log2 k) to
-    log2 n_out - 1.  Builds the kernels' library or raises."""
-    first, end = ctypes.c_int64(), ctypes.c_int64()
-    _build.launch("zigz_ntt_stages", n, n_out, ctypes.byref(first), ctypes.byref(end))
-    return range(first.value, end.value)
+def n2_passes(n: int, n_out: int) -> list:
+    """N2's passes of an (R, n) -> (R, n_out) encode, each a range of the
+    global stages it runs in one launch, as csrc/ntt.cuh's plan splits the
+    stages between the kernels and the passes (``zigz_ntt_passes``): from
+    max(log2 of the tile, log2 k) to log2 n_out - 1, at most 8 a pass.
+    Builds the kernels' library or raises."""
+    bounds, count = (ctypes.c_int64 * (_LOG_MAX_OUT + 1))(), ctypes.c_int64()
+    _build.launch("zigz_ntt_passes", n, n_out, bounds, ctypes.byref(count))
+    return [range(bounds[i], bounds[i + 1]) for i in range(count.value)]
 
 
 def _mont_twiddles_np(n_out: int) -> np.ndarray:
@@ -131,14 +134,14 @@ def encode_rows(mat: torch.Tensor, n_out: int) -> torch.Tensor:
     out = torch.empty((rows, n_out), dtype=torch.int32, device=mat.device)
     if rows == 0:
         return out
-    stages = n2_stages(n, n_out)
+    passes = n2_passes(n, n_out)
     words = mat.to(torch.int32).contiguous()
     tw = _mont_twiddles(n_out, mat.device)
     with torch.cuda.device(mat.device):
         stream = torch.cuda.current_stream(mat.device).cuda_stream
         _launch_tile(words, tw, out, stream)
-        for stage in stages:
-            _launch_stage(out, tw, stage, stream)
+        for stages in passes:
+            _launch_pass(out, tw, stages, stream)
     return out
 
 
@@ -149,7 +152,9 @@ def _launch_tile(words: torch.Tensor, tw: torch.Tensor, out: torch.Tensor, strea
     LAUNCHES["tile"] += 1
 
 
-def _launch_stage(out: torch.Tensor, tw: torch.Tensor, stage: int, stream: int) -> None:
-    """N2: stage ``stage`` of every row of ``out``, in place."""
-    _build.launch("zigz_ntt_stage", out.data_ptr(), tw.data_ptr(), out.shape[0], out.shape[1], stage, stream)
-    LAUNCHES["stage"] += 1
+def _launch_pass(out: torch.Tensor, tw: torch.Tensor, stages: range, stream: int) -> None:
+    """N2: the global stages ``stages`` of every row of ``out``, in place,
+    one launch."""
+    _build.launch("zigz_ntt_pass", out.data_ptr(), tw.data_ptr(), out.shape[0], out.shape[1], stages.start,
+                  stages.stop, stream)
+    LAUNCHES["pass"] += 1

@@ -73,7 +73,7 @@ def counters() -> dict:
     return {
         "K1": keccak.LAUNCHES["leaves"], "K2": keccak.LAUNCHES["merge"],
         "K4": ligero_dev.LAUNCHES["columns"], "K5": ligero_dev.LAUNCHES["absorb"],
-        "N1": ntt_dev.LAUNCHES["tile"], "N2": ntt_dev.LAUNCHES["stage"],
+        "N1": ntt_dev.LAUNCHES["tile"], "N2": ntt_dev.LAUNCHES["pass"],
         "collectives": dict(dist.COLLECTIVES),
     }
 
