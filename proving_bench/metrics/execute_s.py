@@ -1,0 +1,9 @@
+"""`Prover.last_timings["execute_s"]`, the program's own span of that phase,
+the mean a prove over the window."""
+
+from statistics import mean
+
+
+def read(run):
+    values = [p.timings["execute_s"] for p in run.good() if "execute_s" in p.timings]
+    return mean(values) if values else None
