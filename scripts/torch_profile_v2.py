@@ -7,14 +7,15 @@ Needs one CUDA device.  Proves ``2^log2_steps`` NOP steps with
 ``zigz_tpu_torch``'s ``Prover(BabyBear, device="cuda", protocol_version=2)``
 twice: once untraced (the warm-up, whose phase timings are printed), once
 under ``torch.profiler`` (``zigz_tpu_torch.utils.profiling.device_trace``,
-which leaves the Chrome trace in ``DIR/trace.json``).  Prints the card's nvidia-smi name and power
-limit, both runs' phase timings, the traced run's wall time, the sum of the
-kernels' device time, the idle share (1 - device time / wall), Z1's device
-time and launches (every generated program's kernel), the device time by
-kernel name, the count of device zerochecks with the DAG sweep's launches,
-and peak device memory.  The profiler slows the host down, so
-the idle share of the traced run is an upper bound for an untraced one.
-It imports no JAX and nothing of the JAX package.
+which leaves the Chrome trace in ``DIR/trace.json``, where each leaf span
+of the prove is a ``zigz/<parent>/<leaf>`` host event).  Prints the card's
+nvidia-smi name and power limit, both runs' phase timings, the traced
+prove's span tree with each span's total and self time
+(``Prover.last_spans``), Z1's device time and launches (every generated
+program's kernel), the device time by kernel name, the count of device
+zerochecks with the DAG sweep's launches, and peak device memory.  The
+profiler slows the host down, so the traced run's spans are longer than an
+untraced run's.  It imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def main() -> int:
     from zigz_tpu_torch.device import card_info
     from zigz_tpu_torch.lookups import pipeline_lasso
     from zigz_tpu_torch.ops import zerocheck_dev_ext
-    from zigz_tpu_torch.utils.profiling import device_trace
+    from zigz_tpu_torch.utils.profiling import device_trace, format_tree
 
     print(card_info()["nvidia_smi"], flush=True)
     program = bytes([0x13, 0x00, 0x00, 0x00]) * (1 << args.log2_steps)
@@ -67,27 +68,26 @@ def main() -> int:
               f"sweep_launches={zerocheck_dev_ext.DEVICE_PROVES['sweep_launches']} "
               f"lasso_device_rounds={pipeline_lasso.DEVICE_ROUNDS['count']} "
               f"peak_device_memory_B={torch.cuda.max_memory_allocated()}", flush=True)
-        return wall
+        return prover
 
     print("untraced:", flush=True)
     prove()
     print("traced:", flush=True)
     with device_trace(args.trace_dir) as prof:
-        wall = prove()
+        prover = prove()
+    print(format_tree(prover.last_spans), flush=True)
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # a host op's row repeats the device time of the kernels it launched
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("zigz/"):
+            continue  # a host op's or a span's row repeats the device time of the kernels under it
         device_us = getattr(ev, "self_device_time_total", None)
         if device_us is None:
             device_us = ev.self_cuda_time_total
         if device_us > 0:
             rows.append((device_us, ev.count, ev.key))
-    busy_s = sum(r[0] for r in rows) / 1e6
-    if busy_s <= 0:
+    if not rows:
         print("torch.profiler recorded no device time", file=sys.stderr)
         return 1
-    print(f"traced wall_s={wall} device_busy_s={busy_s} idle_share={1 - busy_s / wall}", flush=True)
     z1 = [r for r in rows if "zigz_dag_round_sums_kernel" in r[2]]  # every generated program's kernel
     print(f"z1_device_ms={sum(r[0] for r in z1) / 1e3} z1_launches={sum(r[1] for r in z1)}", flush=True)
     for device_us, count, key in sorted(rows, reverse=True)[: args.top]:

@@ -23,7 +23,6 @@ from zigz_tpu.lookups import lasso as ref_lasso
 from zigz_tpu.lookups import table_builder as ref_tables
 from zigz_tpu.lookups import table_decomposition as ref_table_decomposition
 from zigz_tpu.poly import lagrange as ref_lagrange
-from zigz_tpu.utils import profiling as ref_profiling
 import zigz_tpu_torch as zt
 from zigz_tpu_torch.commitments import host_forest
 from zigz_tpu_torch.commitments.device_forest import DeviceMerkleForest
@@ -355,19 +354,6 @@ def test_verifier_benchmark_defaults_to_the_card():
 
 
 # -- utils/profiling.py --------------------------------------------------------
-
-def test_phase_timer():
-    timer, ref = profiling.PhaseTimer(), ref_profiling.PhaseTimer()
-    for t in (timer, ref):
-        with t.phase("a"):
-            pass
-        with t.phase("b"):
-            pass
-        with t.phase("a"):
-            pass
-    assert list(timer.timings) == list(ref.timings) == ["a", "b"]
-    assert [line.split()[0] for line in timer.report().splitlines()] == ["a", "b", "total"]
-
 
 def test_device_trace_leaves_a_trace_file(tmp_path):
     log_dir = tmp_path / "trace"

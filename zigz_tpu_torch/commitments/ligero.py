@@ -79,6 +79,7 @@ import torch
 
 from ..core.hash import FiatShamirTranscript
 from ..device import resolve_device, synchronize
+from ..utils.profiling import counter_table
 from .merkle import _hash_fns
 
 __all__ = [
@@ -881,7 +882,7 @@ def mixed_layout(col_vars: Dict[str, int], cn: int):
 # Columns placed into a commit matrix from device tensors, and matrix rows
 # uploaded from the host, by ligero_commit_mixed(dev_columns=...) since the
 # last reset.
-STITCHED = {"dev_columns": 0, "host_rows": 0}
+STITCHED = counter_table("ligero_stitched", ["dev_columns", "host_rows"])
 
 
 def _assemble_mat_dev(mat: np.ndarray, dev_columns: Dict[str, torch.Tensor], names, offsets,

@@ -48,6 +48,7 @@ import xxhash
 
 from ..isa.rv64i import Opcode
 from ..prover.proof import PipelineLassoProof, PipelineSumcheckProof
+from ..utils.profiling import counter_table
 
 __all__ = [
     "TABLE_IDS",
@@ -587,7 +588,7 @@ def _sumcheck_rounds_device(F, transcript, evals, device, host_tail: int = None,
 
 
 # Sumcheck rounds that ran on a torch device since the last reset.
-DEVICE_ROUNDS = {"count": 0}
+DEVICE_ROUNDS = counter_table("lasso_rounds", ["count"])
 
 
 def prove_pipeline_lasso(F, transcript, queries_by_table, device=None, host_tail: int = None, group=None):

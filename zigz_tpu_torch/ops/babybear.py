@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import counter_table
 from . import _build
 
 __all__ = ["P", "add", "sub", "neg", "mul", "pow", "inv", "mul_chain", "CHAIN", "LAUNCHES"]
@@ -29,7 +30,7 @@ P = 2013265921  # 15 * 2^27 + 1
 CHAIN = 8  # dependent multiplies per element in mul_chain, as bench.py's chain
 
 # Kernel launches since the last reset; the plain version does not count.
-LAUNCHES = {"mul_chain": 0}
+LAUNCHES = counter_table("babybear", ["mul_chain"])
 
 
 def add(a: torch.Tensor, b) -> torch.Tensor:

@@ -32,6 +32,7 @@ import torch
 
 from ..core.ext4 import Ext4, challenge_ext, ext_from_ints
 from ..parallel import dist
+from ..utils.profiling import counter_table
 from .babybear import P
 from .ext4_dev import _schoolbook, ext_fold_dev
 from .mle import sum_mod
@@ -39,7 +40,7 @@ from .mle import sum_mod
 __all__ = ["mesh_rounds_ok", "prove_rounds_mesh", "MESH_ROUNDS"]
 
 # Rounds that ran sharded on the group's device since the last reset.
-MESH_ROUNDS = {"count": 0}
+MESH_ROUNDS = counter_table("batch_eval_mesh_rounds", ["count"])
 
 
 def mesh_rounds_ok(group, v_max: int) -> bool:

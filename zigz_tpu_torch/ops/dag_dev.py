@@ -26,6 +26,7 @@ from typing import Dict
 
 import torch
 
+from ..utils.profiling import counter_table
 from . import _build, dag_codegen
 from .babybear import P
 from .symtrace import R_MONT_INV, DagProgram, ProgramConstants, compile_device
@@ -38,9 +39,9 @@ __all__ = ["round_sums", "plain_round_sums", "program", "prepare", "SWEEP_CHUNK"
 SWEEP_CHUNK = 1 << 19
 
 # Kernel launches since the last reset; the plain version does not count.
-LAUNCHES = {"round_sums": 0}
+LAUNCHES = counter_table("dag", ["round_sums"])
 # Seconds spent waiting on nvcc for generated kernels, since the last reset.
-WAITED = {"build_s": 0.0}
+WAITED = counter_table("dag_wait", ["build_s"])
 MAX_OUTPUTS = 4
 
 # Every program lowered in this process, by (DAG signature, row map).

@@ -37,6 +37,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import counter_table
 from . import _build
 from . import babybear as bb
 from .babybear import P
@@ -62,7 +63,7 @@ __all__ = [
 ]
 
 # Kernel launches since the last reset; the plain version does not count.
-LAUNCHES = {"fold_planes": 0}
+LAUNCHES = counter_table("ext4", ["fold_planes"])
 
 W = 11  # X^4 = W (core/ext4.py)
 _R_MONT = (1 << 32) % P  # Montgomery radix mod p: Z2 takes r and W r in Montgomery form

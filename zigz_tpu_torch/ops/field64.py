@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import counter_table
 from . import _build
 
 __all__ = [
@@ -45,7 +46,7 @@ MERSENNE61_P = (1 << 61) - 1
 MODULI = (GOLDILOCKS_P, MERSENNE61_P)
 
 # Kernel launches since the last reset; the plain version does not count.
-LAUNCHES = {"fold": 0}
+LAUNCHES = counter_table("field64", ["fold"])
 
 _M16 = 0xFFFF
 _M32 = 0xFFFFFFFF

@@ -23,6 +23,7 @@ import sys
 
 import torch
 
+from ..utils.profiling import counter_table
 from . import _build
 
 __all__ = [
@@ -33,7 +34,7 @@ __all__ = [
 ]
 
 # Kernel launches since the last reset; the plain versions do not count.
-LAUNCHES = {"leaves": 0, "merge": 0}
+LAUNCHES = counter_table("keccak", ["leaves", "merge"])
 
 _RC = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A,

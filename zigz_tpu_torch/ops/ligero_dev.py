@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..commitments.ligero import LigeroCommitState, LigeroParams, _build_levels
+from ..utils.profiling import counter_table
 
 from . import _build
 from .babybear import P
@@ -57,7 +58,7 @@ __all__ = [
 ]
 
 # Kernel launches since the last reset; the plain versions do not count.
-LAUNCHES = {"columns": 0, "absorb": 0}
+LAUNCHES = counter_table("ligero", ["columns", "absorb"])
 
 RATE_WORDS = 34  # 136-byte Keccak rate as u32 words
 _STREAM_BLOCK_WORDS = RATE_WORDS * 16  # 544 rows per encode + absorb step

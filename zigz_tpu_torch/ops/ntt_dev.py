@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..commitments.ligero import _bit_reverse_indices, _twiddles
+from ..utils.profiling import counter_table
 
 from . import _build
 from .babybear import P
@@ -41,7 +42,7 @@ from .babybear import P
 __all__ = ["encode_rows", "n2_passes", "LAUNCHES"]
 
 # Kernel launches since the last reset; the plain version does not count.
-LAUNCHES = {"tile": 0, "pass": 0}
+LAUNCHES = counter_table("ntt", ["tile", "pass"])
 
 _LOG_MAX_OUT = 27  # BabyBear's two-adicity: the largest subgroup
 _MAX_OUT = 1 << _LOG_MAX_OUT

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..core import poseidon2 as host
+from ..utils.profiling import counter_table
 from . import _build
 from .babybear import P
 from .ntt_dev import encode_rows
@@ -74,10 +75,10 @@ CHUNK = 1 << 21
 _STREAM_BLOCK_ROWS = 544
 
 # Kernel launches since the last reset; the plain versions do not count.
-LAUNCHES = {"leaves": 0, "merge": 0, "absorb": 0}
+LAUNCHES = counter_table("poseidon2", ["leaves", "merge", "absorb"])
 # Calls of the plain permutation since the last reset (each over a whole
 # (16, N) state).
-PERMUTATIONS = {"count": 0}
+PERMUTATIONS = counter_table("poseidon2_permutations", ["count"])
 
 
 @functools.lru_cache(maxsize=1)

@@ -30,12 +30,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
+from ..utils.profiling import counter_table, span
 from .babybear import P
 from . import mle
 from .field64 import GOLDILOCKS_P, from_halves
 
-__all__ = ["pack_trace_columns", "build_witness", "from_numpy", "check_slice_width", "NUM_ROWS"]
+__all__ = ["pack_trace_columns", "build_witness", "from_numpy", "check_slice_width", "NUM_ROWS", "UPLOADED"]
 
 NUM_ROWS = 43
 _FILL_VALUES = 1 << 27  # int64 values per transient of the register forward fill
@@ -44,6 +45,7 @@ _U32_COLUMNS = (
     "pc_lo", "pc_hi", "imm_lo", "wr_val_lo", "wr_val_hi",
     "mem_addr_lo", "mem_addr_hi", "mem_val_lo", "mem_val_hi", "initial_regs",
 )
+UPLOADED = counter_table("witness_upload", ["bytes"])  # host bytes copied to the device
 
 
 def pack_trace_columns(trace, initial_regs, num_vars: int, p: int = P) -> dict:
@@ -107,9 +109,11 @@ def pack_trace_columns(trace, initial_regs, num_vars: int, p: int = P) -> dict:
 
 def _upload(packed: dict, device: torch.device) -> dict:
     """numpy columns -> int64 device tensors (uint32 travels as int32 bits,
-    uint64 as int64 bits)."""
+    uint64 as int64 bits).  A copy from pageable host memory returns once
+    the host has staged it, so the host's time here is the copies'."""
     out = {}
     for key, arr in packed.items():
+        UPLOADED["bytes"] += arr.nbytes
         if arr.dtype == np.uint64:
             out[key] = torch.from_numpy(np.ascontiguousarray(arr).view(np.int64)).to(device)
         elif key in _U32_COLUMNS:
@@ -167,14 +171,15 @@ def _slice_columns(packed: dict, first: int, count: int, p: int) -> dict:
 def build_witness(trace, initial_regs, num_vars: int, device, group=None, p: int = P) -> torch.Tensor:
     """Native columnar trace -> (43, 2^v) witness on ``device``, canonical
     mod ``p`` (the field's modulus): int32 below 2^31, int64 u64 bits over a
-    field of ``mle.WIDE_MODULI``.
+    field of ``mle.WIDE_MODULI``.  Returns once the device has built it, in
+    three spans: ``pack`` (host), ``upload`` (the copies) and ``build``
+    (the rows, to a synchronize).
 
     Under a ``group`` (parallel/multihost.py ``TraceGroup``) every rank
     builds its CONTIGUOUS columns ``[rank * N/D, (rank + 1) * N/D)`` only and
     returns that (43, N/D) slice; a slice of fewer than 2 steps raises."""
     device = resolve_device(device)
     wide = mle.is_wide(mle.check_device_modulus(p))
-    packed = pack_trace_columns(trace, initial_regs, num_vars, p)
     n = 1 << num_vars
     if group is not None:
         if wide:
@@ -182,9 +187,20 @@ def build_witness(trace, initial_regs, num_vars: int, device, group=None, p: int
         if group.device != device:
             raise ValueError(f"group on {group.device}, witness on {device}")
         n = check_slice_width(n, group.world_size)
-        packed = _slice_columns(packed, group.rank * n, n, p)
-    d = _upload(packed, device)
+    with span("pack"):
+        packed = pack_trace_columns(trace, initial_regs, num_vars, p)
+        if group is not None:
+            packed = _slice_columns(packed, group.rank * n, n, p)
+    with span("upload"):
+        d = _upload(packed, device)
+    with span("build"):
+        out = _build_rows(d, n, wide, p, device)
+        synchronize(device)
+    return out
 
+
+def _build_rows(d: dict, n: int, wide: bool, p: int, device) -> torch.Tensor:
+    """The 43 witness rows from the uploaded columns."""
     mod_u64 = _mod_u64_wide if wide else _mod_u64
     imm_hi = (d["imm_lo"] >> 31) * 0xFFFFFFFF  # sign extension of bit 31
     wr_val = mod_u64(d["wr_val_lo"], d["wr_val_hi"], p)
@@ -240,4 +256,5 @@ def from_numpy(matrix: np.ndarray, device, p: int = P) -> torch.Tensor:
         raise ValueError(f"expected a 2-D {np.dtype(dtype)} array for p = {p}, got {arr.dtype} {arr.shape}")
     if arr.size and int(arr.max()) >= p:  # the max of an unsigned array, exact
         raise ValueError("witness values must be canonical (< p)")
+    UPLOADED["bytes"] += arr.nbytes
     return torch.from_numpy(arr.view(np.int64 if wide else np.int32)).to(resolve_device(device))

@@ -58,6 +58,7 @@ import torch
 
 from ..core.ext4 import Ext4, challenge_ext, ext_from_ints
 from ..device import resolve_device
+from ..utils.profiling import counter_table
 from . import dag_dev, ext4_dev
 from .babybear import P
 from .symtrace import TraceError, trace_combiner_ext
@@ -75,8 +76,8 @@ HOST_TAIL_EXT = 1
 # and Z2 they made, their waits on nvcc and their host tracing, lowering and
 # generation (seconds), and where their base columns came from: a
 # commitment's resident matrix, or an upload.
-DEVICE_PROVES = {"count": 0, "sweep_launches": 0, "dag_build_s": 0.0, "zerocheck_host_s": 0.0}
-COLUMNS = {"resident": 0, "uploaded": 0}
+DEVICE_PROVES = counter_table("zerocheck", ["count", "sweep_launches", "dag_build_s", "zerocheck_host_s"])
+COLUMNS = counter_table("zerocheck_columns", ["resident", "uploaded"])
 
 
 def reset_counters() -> None:

@@ -45,6 +45,7 @@ import torch
 from ..core.hash import FiatShamirTranscript
 from ..device import resolve_device
 from ..parallel import dist
+from ..utils.profiling import counter_table
 from . import dag_dev
 from .babybear import P
 from .mle import fold_msb
@@ -57,7 +58,7 @@ HOST_TAIL = 1 << 12
 
 # Zerochecks proven by this class since the last reset, and the launches of
 # Z1 they made.
-DEVICE_PROVES = {"count": 0, "sweep_launches": 0}
+DEVICE_PROVES = counter_table("zerocheck_gen", ["count", "sweep_launches"])
 
 
 def eq_table_device(taus: List[int], n: int, device, group=None) -> torch.Tensor:

@@ -41,6 +41,7 @@ from ..core.hash import FiatShamirTranscript
 from ..device import resolve_device
 from ..ops import babybear as bb
 from ..ops.mle import batch_eval_lsb, fold_msb, round_poly_msb, sum_mod
+from ..utils.profiling import counter_table
 from .multihost import TraceGroup
 
 __all__ = [
@@ -60,7 +61,7 @@ __all__ = [
 ]
 
 # Collectives issued through torch.distributed since the last reset.
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
+COLLECTIVES = counter_table("collectives", ["all_reduce", "all_gather", "all_to_all"])
 
 
 def world_size(group: Optional[TraceGroup]) -> int:

@@ -25,6 +25,8 @@ from typing import List
 
 from ..commitments.commit import OpeningProof
 from ..commitments.merkle import MerklePath, OpeningProof as MerkleOpening
+from ..utils import profiling
+from ..utils.profiling import span
 from .proof import (
     CompactLassoList,
     PipelineLassoProof,
@@ -118,10 +120,13 @@ class _Reader:
 
 
 class BinarySerializer:
-    """BinarySerializer(F) twin."""
+    """BinarySerializer(F) twin.  ``last_spans`` holds the spans of the last
+    serialize (utils/profiling.py), under the prove id of the proof's
+    ``Prover.prove`` (its ``prove_id``; None for a proof from elsewhere)."""
 
     def __init__(self, F):
         self.F = F
+        self.last_spans = profiling.SpanLog(None)
 
     # -- serialize ---------------------------------------------------------
     def serialize(self, proof: Proof) -> bytes:
@@ -139,19 +144,23 @@ class BinarySerializer:
         return w.finish()
 
     def _write_all(self, w: _Writer, proof: Proof) -> None:
-        self._write_header(w, proof)
-        self._write_public_io(w, proof.public_io)
-        if proof.metadata.version < 2:
-            # v2+ carries its extension-field zerocheck in the v2 section;
-            # the v1 constraint rows would be dead zero bytes.
-            self._write_sumcheck(w, proof.constraint_proof)
-        self._write_lasso_proofs(w, proof.lookup_proofs)
-        if proof.metadata.version < 4:
-            # v4 has no per-column Merkle forest (Ligero witness PCS in
-            # the v2 section replaces it).
-            self._write_witness_commitments(w, proof.witness_commitments)
-        if proof.metadata.version >= 2:
-            self._write_v2_section(w, proof.v2, proof.metadata.version)
+        with profiling.root("serialize", getattr(proof, "prove_id", None)) as spans:
+            self.last_spans = spans
+            self._write_header(w, proof)
+            self._write_public_io(w, proof.public_io)
+            if proof.metadata.version < 2:
+                # v2+ carries its extension-field zerocheck in the v2 section;
+                # the v1 constraint rows would be dead zero bytes.
+                self._write_sumcheck(w, proof.constraint_proof)
+            with span("lasso"):
+                self._write_lasso_proofs(w, proof.lookup_proofs)
+            if proof.metadata.version < 4:
+                # v4 has no per-column Merkle forest (Ligero witness PCS in
+                # the v2 section replaces it).
+                with span("commitments"):
+                    self._write_witness_commitments(w, proof.witness_commitments)
+            if proof.metadata.version >= 2:
+                self._write_v2_section(w, proof.v2, proof.metadata.version)
 
     def _write_header(self, w: _Writer, proof: Proof) -> None:
         w.bytes_(MAGIC)

@@ -64,7 +64,6 @@ zerochecks waited on nvcc for those kernels (0 once they are built) and
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -89,6 +88,7 @@ from ..proofs.batch_eval import (
     prove_batch_eval,
     verify_batch_eval,
 )
+from ..utils.profiling import span
 
 __all__ = ["ClaimSink", "UnifiedProof", "prove_unified", "verify_unified"]
 
@@ -130,10 +130,10 @@ def _namespace(arg, cols: Dict[str, np.ndarray], commit_key: str,
 
 
 def _commit(F, key: str, columns, hash_mode, device, timings, dev_columns=None, group=None) -> LigeroCommitState:
-    t0 = time.perf_counter()
-    state = ligero_commit_mixed(F, columns, hash_mode, device=device, dev_columns=dev_columns, group=group)
+    with span(f"{key}_commit") as sp:
+        state = ligero_commit_mixed(F, columns, hash_mode, device=device, dev_columns=dev_columns, group=group)
     if timings is not None:
-        timings[f"{key}_commit_s"] = time.perf_counter() - t0
+        timings[f"{key}_commit_s"] = sp.seconds
         timings[f"{key}_commit_path"] = state.commit_path
         if group is not None:
             timings[f"{key}_commit_sharded"] = state.commit_path == "mesh"
@@ -164,20 +164,20 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
         transcript.append_bytes(data_state.root)
 
     advice_full: Dict[str, np.ndarray] = {}
-    t0 = time.perf_counter()
-    start_s = 0.0
-    for a in args:
-        _namespace(a, a.advice_phase(transcript), "advice", advice_full)
-        # The argument's zerochecks can be made now that its challenges are
-        # drawn: on a card each one's round-sum kernels start building
-        # (ops/dag_dev.py), beside the later advice phases and both commits.
-        t1 = time.perf_counter()
-        for zc in a.zerochecks:
-            zc.start()
-        start_s += time.perf_counter() - t1
+    start_s: List[float] = []
+    with span("advice_build", outer=True) as advice_span:
+        for a in args:
+            _namespace(a, a.advice_phase(transcript), "advice", advice_full)
+            # The argument's zerochecks can be made now that its challenges are
+            # drawn: on a card each one's round-sum kernels start building
+            # (ops/dag_dev.py), beside the later advice phases and both commits.
+            with span("zerocheck_start") as sp:
+                for zc in a.zerochecks:
+                    zc.start()
+            start_s.append(sp.seconds)
     if timings is not None:
-        timings["advice_build_s"] = time.perf_counter() - t0 - start_s
-        timings["zerocheck_start_s"] = start_s
+        timings["advice_build_s"] = advice_span.seconds - sum(start_s)
+        timings["zerocheck_start_s"] = sum(start_s)
 
     # Device twins of the advice columns (ops/advice_dev.py): rebuilt on the
     # device from the resident data matrix + the host-resolved challenges, so
@@ -191,16 +191,16 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
     # rank holds the whole DATA matrix they would read.
     advice_dev: Dict[str, object] = {}
     if group is None and data_state is not None and advice_full:
-        t0 = time.perf_counter()
-        for a in args:
-            build = getattr(a, "device_advice", None)
-            if build is None:
-                continue
-            for local, arr in build(data_state).items():
-                advice_dev[f"{a.ns}:{local}"] = arr
-        synchronize(device)
+        with span("advice_dev") as sp:
+            for a in args:
+                build = getattr(a, "device_advice", None)
+                if build is None:
+                    continue
+                for local, arr in build(data_state).items():
+                    advice_dev[f"{a.ns}:{local}"] = arr
+            synchronize(device)
         if timings is not None:
-            timings["advice_dev_s"] = time.perf_counter() - t0
+            timings["advice_dev_s"] = sp.seconds
             timings["advice_dev_cols"] = len(advice_dev)
 
     advice_state = None
@@ -212,15 +212,15 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
         transcript.append_bytes(advice_state.root)
 
     sink = ClaimSink()
-    t0 = time.perf_counter()
     zc_before = dict(zerocheck_dev_ext.DEVICE_PROVES)
     states = {"data": data_state, "advice": advice_state}
     for a in args:
         a._unified_states = states
-    for a in args:
-        a.zerocheck_phase(transcript, sink)
+    with span("zerochecks") as sp:
+        for a in args:
+            a.zerocheck_phase(transcript, sink)
     if timings is not None:
-        timings["zerochecks_s"] = time.perf_counter() - t0
+        timings["zerochecks_s"] = sp.seconds
         for key in ("dag_build_s", "zerocheck_host_s"):
             timings[key] = zerocheck_dev_ext.DEVICE_PROVES[key] - zc_before[key]
         if group is not None:
@@ -231,24 +231,24 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
     if sink.claims:
         columns = {("data", fn): arr for fn, arr in data_full.items()}
         columns.update({("advice", fn): arr for fn, arr in advice_full.items()})
-        t0 = time.perf_counter()
-        batch = prove_batch_eval(sink.claims, columns, transcript, group=group,
-                                 timings=timings if group is not None else None)
+        with span("batch_eval") as sp:
+            batch = prove_batch_eval(sink.claims, columns, transcript, group=group,
+                                     timings=timings if group is not None else None)
         if timings is not None:
-            timings["batch_eval_s"] = time.perf_counter() - t0
+            timings["batch_eval_s"] = sp.seconds
         rho = batch.final_point
-        t0 = time.perf_counter()
-        for key, state in states.items():
-            if state is None:
-                continue
-            evals = {fn: v for (ck, fn), v in batch.column_evals.items() if ck == key}
-            if not evals:
-                continue
-            claim = mixed_claim_from_rho(state.col_vars, state.cn, rho, evals)
-            opened[key] = ligero_prove_mixed(state, [claim], transcript)
-        synchronize(device)
+        with span("open") as sp:
+            for key, state in states.items():
+                if state is None:
+                    continue
+                evals = {fn: v for (ck, fn), v in batch.column_evals.items() if ck == key}
+                if not evals:
+                    continue
+                claim = mixed_claim_from_rho(state.col_vars, state.cn, rho, evals)
+                opened[key] = ligero_prove_mixed(state, [claim], transcript)
+            synchronize(device)
         if timings is not None:
-            timings["open_s"] = time.perf_counter() - t0
+            timings["open_s"] = sp.seconds
             if group is not None:
                 timings["open_sharded"] = any(
                     opened[key] is not None and state.commit_path == "mesh"
