@@ -123,6 +123,15 @@ the last line:
      pass: all of its stages' butterflies against one read and one write of
      the block); ptxas's registers and spills.  No PyTorch call computes a
      BabyBear NTT (``library_ms`` null).
+  2e. W1, the witness rows (csrc/witness_kernels.cu over
+     csrc/witness.cuh; no TPU kernel: zigz_tpu builds them in jitted jnp
+     after packing the columns on the host), against
+     ``_witness_rows_plain`` on the same card tensors over BabyBear,
+     Goldilocks and Mersenne61 (``witness_kernel_phase``): 777 steps in
+     2^10 rows and 4,190,000 in 2^22, edge values among them, byte error 0,
+     one launch a call; one ``build_witness`` a launch; W1, its plain
+     version and the register fill by CUDA events at 2^22; the bound by
+     bytes; ptxas's registers and spills.
   2b. the bench's multiply-chain kernel (csrc/field_kernels.cu, the
      headline of bench_torch.py; no TPU counterpart): ``babybear.mul_chain``
      against ``_mul_chain_plain`` on the card at 2^22 elements and at the
@@ -1164,6 +1173,107 @@ def ntt_kernel_phase(dev, max_sm_mhz: float, butterfly: dict, build_log: str) ->
     return results
 
 
+def witness_kernel_phase(dev, build_log: str) -> dict:
+    """Phase 2e: W1 (``witness_dev.witness_rows``, csrc/witness_kernels.cu
+    over csrc/witness.cuh; it stands for the non-register rows of the JAX
+    package's ``_build_witness_jit`` and its host ``pack_trace_columns``)
+    against its plain version ``_witness_rows_plain`` on the same card
+    tensors, over BabyBear, Goldilocks and Mersenne61: raw columns of 777
+    steps in 2^10 rows and of 4,190,000 steps in 2^22 (the v1-fib-2e22
+    cell's shape), with the edge values of tests/torch_witness_cases.py
+    ``raw_columns`` among them; byte error 0, each call one launch over its
+    real steps; then one ``build_witness`` of each edge trace of that file
+    on the card, one launch each and the witness of the CPU's plain path.
+    Times by CUDA events at the 2^22 shape: W1, the plain version, and the
+    register fill that reads W1's outputs.  The bound: the bytes, the raw
+    columns read once (48 B a real step) and rows 0, 33-42, the write value
+    and the write index written once, over 3.35 TB/s.  No PyTorch call
+    computes these rows (``library_ms`` null).  Returns an entry a field,
+    with ptxas's registers and spills of its instantiation."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_witness_cases import EDGE_CASES, raw_columns
+    from zigz_tpu_torch import BabyBear, Goldilocks, Mersenne61
+    from zigz_tpu_torch.ops import _build, witness_dev
+    from zigz_tpu_torch.runtime import native_vm
+
+    def event_ms(fn, reps) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def byte_err(a, b) -> int:
+        return int((a.view(torch.uint8).to(torch.int16) - b.view(torch.uint8).to(torch.int16)).abs().max())
+
+    instances = {"BabyBear": "Narrow", "Goldilocks": "Goldilocks", "Mersenne61": "Mersenne61"}
+    results = {}
+    for name, field in (("BabyBear", BabyBear), ("Goldilocks", Goldilocks), ("Mersenne61", Mersenne61)):
+        p = field.MODULUS
+        wide = p >= 1 << 31
+        dtype, word = (torch.int64, 8) if wide else (torch.int32, 4)
+        err = 0
+        for n_real, n in ((777, 1 << 10), (4_190_000, 1 << 22)):
+            cols = {k: torch.from_numpy(a.view(np.int64) if a.dtype == np.uint64 else a).to(dev)
+                    for k, a in raw_columns(n_real, seed=n_real).items()}
+            last_pc = int(cols["pc"][-1]) & ((1 << 64) - 1)
+            got = torch.full((43, n), 7, dtype=dtype, device=dev)
+            want = got.clone()
+            before = dict(witness_dev.ROWS)
+            got_val, got_idx = witness_dev.witness_rows(cols, n_real, last_pc, got, p)
+            torch.cuda.synchronize()
+            if witness_dev.ROWS != {"launches": before["launches"] + 1, "steps": before["steps"] + n_real}:
+                raise AssertionError(f"W1 over {name}: counters {witness_dev.ROWS} after {before}")
+            want_val, want_idx = witness_dev._witness_rows_plain(cols, n_real, last_pc, want, p)
+            err = max(err, byte_err(got, want), byte_err(got_val, want_val), byte_err(got_idx, want_idx))
+        if err:
+            raise AssertionError(f"W1 over {name} disagrees with its plain version: byte error {err}")
+        nbytes = 48 * n_real + (11 * word + word + 1) * n
+        rows = torch.empty((43, n), dtype=dtype, device=dev)
+        wr_val, wr_idx = witness_dev.witness_rows(cols, n_real, last_pc, rows, p)
+        regs = torch.zeros(32, dtype=dtype, device=dev)
+        entry = dict(
+            max_abs_err=err, shape=f"{n_real:,} steps -> (43, 2^22) rows 0, 33-42 [the v1-fib-2e22 witness over {name}]",
+            ms=event_ms(lambda: witness_dev.witness_rows(cols, n_real, last_pc, rows, p), 20),
+            plain_ms=event_ms(lambda: witness_dev._witness_rows_plain(cols, n_real, last_pc, rows, p), 2),
+            register_fill_ms=event_ms(lambda: witness_dev._fill_registers(rows, wr_val, wr_idx, regs), 5),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes, library_ms=None,
+            ptxas=_build.ptxas_report(next((part for part in build_log.split("Compiling entry function")[1:]
+                                            if "witness_rows_kernel" in part.splitlines()[0]
+                                            and instances[name] in part.splitlines()[0]), "")))
+        log(f"phase 2e W1 over {name}: kernel == plain (max byte err {err}) at 777 steps in 2^10 rows and "
+            f"{entry['shape']}, one launch a call; kernel {entry['ms']} ms, plain {entry['plain_ms']} ms, bound "
+            f"{entry['bound_ms']} ms by bytes ({nbytes} B), {entry['bound_ms'] / entry['ms']:.1%} of it; the "
+            f"register fill after it {entry['register_fill_ms']} ms; ptxas {entry['ptxas']}")
+        results[name] = entry
+        del cols, got, want, rows, wr_val, wr_idx
+        torch.cuda.empty_cache()
+    launches = {}
+    for case, make in EDGE_CASES.items():
+        spec = make()
+        nvm = native_vm.NativeVM()
+        nvm.load_segment(0x1000, spec["program"])
+        trace = nvm.run(0x1000, 10000, spec["initial_regs"], None)["trace"]
+        num_vars = max(0, (trace.step_count() - 1).bit_length())
+        before = witness_dev.ROWS["launches"]
+        lo = witness_dev.build_witness(trace, trace.initial_regs, num_vars, dev)
+        launches[case] = witness_dev.ROWS["launches"] - before
+        if launches[case] != 1 or not torch.equal(lo.cpu(), witness_dev.build_witness(
+                trace, trace.initial_regs, num_vars, "cpu")):
+            raise AssertionError(f"build_witness of {case} on the card: {launches[case]} launches of W1, or a "
+                                 "witness other than the CPU's")
+    log(f"phase 2e build_witness on the card: one launch of W1 and the CPU's witness for {sorted(launches)}")
+    results["build_witness_launches"] = launches
+    return results
+
+
 def wide_field_phases(dev, pinned) -> dict:
     """Phases 4c and 5b: v1 over Goldilocks and Mersenne61 through
     ``Prover(F, device=dev)``.  4c: NOP at 2^16 and 2^20 steps and the
@@ -1741,6 +1851,9 @@ def main() -> int:
     # -- phase 2d: N1 and N2, the Reed-Solomon encode, against its plain version
     ntt_results = ntt_kernel_phase(dev, max_sm_mhz, butterfly, kernels.log)
 
+    # -- phase 2e: W1, the witness rows, against its plain version -----------
+    w1_results = witness_kernel_phase(dev, kernels.log)
+
     def canonical(shape):
         """Random canonical int32."""
         return torch.randint(0, P, shape, device=dev, dtype=torch.int32, generator=gen)
@@ -1818,13 +1931,24 @@ def main() -> int:
         f"host_anchor_s {b['host_anchor_s']}, mul_chain launches {chain_launches}")
 
     # -- proves ------------------------------------------------------------
+    def check_w1(prover, counts, version=1):
+        """W1 once a prove of a native trace that commits the 43 rows (v1,
+        v2, v3; v4 commits no witness trees), over all its real steps; never
+        for the Python VM's trace."""
+        want = (1, prover.last_timings["num_steps"]) if prover.use_native_vm and version != 4 else (0, 0)
+        if (counts["W1"], counts["W1_steps"]) != want:
+            raise AssertionError(f"v{version}: W1 launched {counts['W1']} times over {counts['W1_steps']} steps, "
+                                 f"not {want[0]} over {want[1]}")
+
     def port_prove(program, entry, segments, tape, max_steps, field=F):
         keccak.LAUNCHES.update(leaves=0, merge=0)
+        witness_dev.ROWS.update(launches=0, steps=0)
         prover = zt.Prover(field, seed=0, device=dev)
         proof = prover.prove(program, entry, None, max_steps, segments, tape)
-        counts = dict(keccak.LAUNCHES)
+        counts = {**keccak.LAUNCHES, "W1": witness_dev.ROWS["launches"], "W1_steps": witness_dev.ROWS["steps"]}
         if proof.metadata.num_steps > 1 and not (counts["leaves"] > 0 and counts["merge"] > 0):
             raise AssertionError(f"the prove did not launch both kernels: {counts}")
+        check_w1(prover, counts)
         if proof.metadata.num_steps >= 1 << 20 and not prover.use_native_vm:
             raise AssertionError("the native VM is required at 2^20 steps and above")
         field_ser = zt.serialization.BinarySerializer(field)
@@ -1986,6 +2110,7 @@ def main() -> int:
         zerocheck_dev_ext.reset_counters()
         dag_dev.LAUNCHES["round_sums"] = 0
         ext4_dev.LAUNCHES["fold_planes"] = 0
+        witness_dev.ROWS.update(launches=0, steps=0)
         zc_seen.clear()
         pipeline_lasso.DEVICE_ROUNDS["count"] = 0
         advice_seen.clear()
@@ -1999,7 +2124,9 @@ def main() -> int:
         counts = {**keccak.LAUNCHES, **ligero_dev.LAUNCHES, "N1": ntt_dev.LAUNCHES["tile"],
                   "N2": ntt_dev.LAUNCHES["pass"], "P1": poseidon2.LAUNCHES["leaves"],
                   "P2": poseidon2.LAUNCHES["merge"], "P3": poseidon2.LAUNCHES["absorb"],
-                  "p2_permutations": poseidon2.PERMUTATIONS["count"], **dag_dev.LAUNCHES, **ext4_dev.LAUNCHES}
+                  "p2_permutations": poseidon2.PERMUTATIONS["count"], **dag_dev.LAUNCHES, **ext4_dev.LAUNCHES,
+                  "W1": witness_dev.ROWS["launches"], "W1_steps": witness_dev.ROWS["steps"]}
+        check_w1(prover, counts, version)
         if counts["columns"]:
             raise AssertionError(f"K4 is on no prove, yet the v{version} prove launched it: {counts}")
         # v2: SHA3 forest and sponge (K1, K2, K5); v4: no forest (K5); v3:
@@ -2174,7 +2301,7 @@ def main() -> int:
         with forest_thresholds(discard=(43 << v) >> 3, group=16 << v):
             if version == 1:
                 data, prover, counts = port_prove(program, entry, segments, tape, max_steps)
-                if counts != {"leaves": 3 + 3, "merge": 3 * v + 3}:
+                if (counts["leaves"], counts["merge"]) != (3 + 3, 3 * v + 3):
                     raise AssertionError(f"{name}: launches {counts} are not those of 3 groups and 3 freed levels")
             else:
                 data, prover, counts, _peak, _work = port_prove_v2(program, entry, segments, tape, max_steps, version)
@@ -2499,6 +2626,22 @@ def main() -> int:
                                  for e in ntt_results["ntt"]],
                 "instructions_a_butterfly": {k: butterfly[k] for k in ("issued", "ALU", "FMA", "sm_clocks",
                                                                        "limb")}})})
+    # W1, the witness rows: no TPU kernel (zigz_tpu builds them in jitted
+    # jnp from its host packing).  Its launches are those counted in the
+    # proves of phases 5 (v1 2^22) and 6-9 (2^20); the measurements are
+    # BabyBear's at the v1-fib-2e22 shape, the two 64-bit fields' beside them.
+    kernels_line["kernels"].append({
+        "name": "witness_rows (W1)", "route": "cuda", "source": "zigz_tpu_torch/csrc/witness_kernels.cu",
+        "replaces": "none: the non-register rows of zigz_tpu/ops/witness_dev.py _build_witness_jit (jnp) and its "
+                    "host pack_trace_columns",
+        "tpu_kernel": None, "launches": main_counts["W1"], "steps": main_counts["W1_steps"],
+        "launches_v2": launches_at_2_20[2]["W1"], "launches_v3": launches_at_2_20[3]["W1"],
+        "launches_v4": launches_at_2_20[4]["W1"],
+        **{k: w1_results["BabyBear"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "shape", "register_fill_ms", "ptxas")},
+        **{name.lower(): {k: w1_results[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "ptxas")}
+           for name in ("Goldilocks", "Mersenne61")},
+        "build_witness_launches": w1_results["build_witness_launches"]})
     log(json.dumps({"torch_ops": torch_ops}))
     log(json.dumps(kernels_line))
     log(info["nvidia_smi"])

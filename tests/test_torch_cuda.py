@@ -29,6 +29,9 @@ from zigz_tpu_torch.commitments import ligero
 from zigz_tpu_torch.core import poseidon2 as p2_host
 from zigz_tpu_torch.ops import ext4_dev, field64, keccak, ligero_dev, ntt_dev, poseidon2, witness_dev, zerocheck_dev_ext
 from zigz_tpu_torch.proofs.zerocheck import ZerocheckExtProver, count_zerocheck_proofs
+from zigz_tpu_torch.runtime import native_vm
+
+from torch_witness_cases import EDGE_CASES, raw_columns
 
 pytestmark = pytest.mark.cuda
 
@@ -87,6 +90,45 @@ def test_e1_matches_its_plain_version(cuda, p, shape):
     torch.cuda.synchronize()
     assert field64.LAUNCHES["fold"] == before + 1
     assert torch.equal(got.cpu(), field64._fold_lsb_u64_plain(x, rr, p))
+
+
+@pytest.mark.parametrize("n_real, n", [(777, 1 << 10), (4_190_000, 1 << 22)])
+@pytest.mark.parametrize("field", [BabyBear, Goldilocks, Mersenne61])
+def test_w1_matches_its_plain_version(cuda, field, n_real, n):
+    """W1 against ``_witness_rows_plain`` on the same raw columns, byte for
+    byte: rows 0 and 33-42 (the rest left as they were), the reduced write
+    value and the write index; one launch over ``n_real`` steps."""
+    p = field.MODULUS
+    cols = {k: torch.from_numpy(a.view(np.int64) if a.dtype == np.uint64 else a)
+            for k, a in raw_columns(n_real, seed=n_real).items()}
+    last_pc = int(cols["pc"][-1]) & ((1 << 64) - 1)
+    dtype = torch.int64 if p >= 1 << 31 else torch.int32
+    want = torch.full((43, n), 7, dtype=dtype)
+    want_val, want_idx = witness_dev.witness_rows(cols, n_real, last_pc, want, p)
+    got = torch.full((43, n), 7, dtype=dtype, device=cuda)
+    before = dict(witness_dev.ROWS)
+    got_val, got_idx = witness_dev.witness_rows({k: v.to(cuda) for k, v in cols.items()}, n_real, last_pc, got, p)
+    torch.cuda.synchronize()
+    assert witness_dev.ROWS == {"launches": before["launches"] + 1, "steps": before["steps"] + n_real}
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got_val.cpu(), want_val) and torch.equal(got_idx.cpu(), want_idx)
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_build_witness_on_the_card_launches_w1_once(cuda, case):
+    """One ``build_witness`` of a native trace on the card: exactly one
+    launch of W1, and the witness of the CPU's plain path."""
+    spec = EDGE_CASES[case]()
+    nvm = native_vm.NativeVM()
+    nvm.load_segment(0x1000, spec["program"])
+    trace = nvm.run(0x1000, 10000, spec["initial_regs"], None)["trace"]
+    num_vars = max(0, (trace.step_count() - 1).bit_length())
+    for field in (BabyBear, Goldilocks):
+        before = witness_dev.ROWS["launches"]
+        lo = witness_dev.build_witness(trace, trace.initial_regs, num_vars, cuda, p=field.MODULUS)
+        assert witness_dev.ROWS["launches"] == before + 1
+        assert torch.equal(lo.cpu(), witness_dev.build_witness(trace, trace.initial_regs, num_vars, "cpu",
+                                                               p=field.MODULUS))
 
 
 @pytest.mark.parametrize("field", [Goldilocks, Mersenne61])

@@ -28,6 +28,7 @@ from zigz_tpu_torch.core import field as port_field
 from zigz_tpu_torch.ops import mle, witness_dev
 
 from test_torch_prover import FIXTURES
+from torch_witness_cases import EDGE_CASES
 
 FIELDS = ("KoalaBear", "Mersenne31", "F17")
 WIDE = ("Goldilocks", "Mersenne61")
@@ -159,6 +160,7 @@ def _memory_and_regs():
 WITNESS_CASES = {
     "memory_and_regs": _memory_and_regs,
     "fibonacci": lambda: dict(program=None, entry=None, initial_regs=None),
+    **{name: (lambda case=case: dict(entry=0x1000, **case())) for name, case in EDGE_CASES.items()},
 }
 
 

@@ -136,9 +136,9 @@ def test_build_hashes_the_sources():
     units, headers = _build._sources()
     assert [p.name for p in units] == ["field64_kernels.cu", "field_kernels.cu", "ligero_kernels.cu",
                                        "ntt_kernels.cu", "poseidon2_kernels.cu", "sha3_kernels.cu",
-                                       "zerocheck_kernels.cu"]
+                                       "witness_kernels.cu", "zerocheck_kernels.cu"]
     assert [p.name for p in headers] == ["babybear.cuh", "dag_round.cuh", "field64.cuh", "keccak.cuh", "ntt.cuh",
-                                         "poseidon2.cuh"]
+                                         "poseidon2.cuh", "witness.cuh"]
     path = _build._library_path(units, headers)
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)

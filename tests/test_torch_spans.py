@@ -98,8 +98,8 @@ def test_a_prove_and_its_serialize_make_one_tree():
         assert t[f"witness_{leaf}_s"] == _one(prove_log, leaf).seconds
     assert t["witness_pack_s"] + t["witness_upload_s"] + t["witness_build_s"] <= t["witness_dev_s"]
     assert t["lasso_absorb_s"] == _one(prove_log, "lasso_absorb").seconds
-    # 44 bytes a step of the 2^7 padded trace, and the 32 initial registers as u32 words
-    assert t["witness_upload_bytes"] == 44 * (1 << 7) + 32 * 4
+    # the native VM's columns as they lie, 48 bytes a real step, and the 32 initial registers as u32 words
+    assert t["witness_upload_bytes"] == 48 * proof.metadata.num_steps + 32 * 4
     assert t["gc_s"] >= 0 and t["gc_collections"] >= 0
 
 

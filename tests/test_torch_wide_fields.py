@@ -38,6 +38,7 @@ from zigz_tpu_torch.ops import _build, field64, mle, witness_dev
 
 import torch_wide_guest
 from test_torch_prover import FIXTURES
+from torch_witness_cases import EDGE_CASES
 
 WIDE = ("Goldilocks", "Mersenne61")
 NARROW = ("BabyBear", "KoalaBear", "Mersenne31", "F17")
@@ -160,6 +161,8 @@ WITNESS_CASES = {
     "wide-values": lambda: (torch_wide_guest.program(), torch_wide_guest.ENTRY, None, None),
     "memory-and-initial-regs": _memory_and_regs,
     "fibonacci": lambda: ((FIXTURES / "fibonacci_program.bin").read_bytes(), None, None, [9]),
+    **{name: (lambda case=case: (case()["program"], 0x1000, case()["initial_regs"], None))
+       for name, case in EDGE_CASES.items()},
 }
 
 

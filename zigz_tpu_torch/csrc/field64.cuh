@@ -60,6 +60,9 @@ struct Goldilocks {
     return t2 >= kP ? t2 - kP : t2;
   }
 
+  // Any u64 mod p: v < 2^64 < 2p, so one conditional subtract.
+  static ZIGZ_HD uint64_t from_u64(uint64_t v) { return v >= kP ? v - kP : v; }
+
   static ZIGZ_HD uint64_t add(uint64_t a, uint64_t b) {
     const uint64_t s = a + b;
     // a + b < 2p: past 2^64 the true sum less p is s + kEps (< p).
@@ -81,6 +84,13 @@ struct Mersenne61 {
   static ZIGZ_HD uint64_t reduce(uint64_t lo, uint64_t hi) {
     uint64_t s = (lo & kP) + ((lo >> 61) | (hi << 3));  // < 2^62
     s = (s & kP) + (s >> 61);                           // <= p (s >> 61 is 1 only when s & kP < p)
+    return s >= kP ? s - kP : s;
+  }
+
+  // Any u64 mod p: (v mod 2^61) + (v >> 61) < 2^61 + 8, then one
+  // conditional subtract.
+  static ZIGZ_HD uint64_t from_u64(uint64_t v) {
+    const uint64_t s = (v & kP) + (v >> 61);
     return s >= kP ? s - kP : s;
   }
 

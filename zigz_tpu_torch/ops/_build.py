@@ -86,6 +86,8 @@ _SYMBOLS = {
     "zigz_ntt_tile": ([_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR], _INT),
     "zigz_ntt_pass": ([_PTR, _PTR, _I64, _I64, _I64, _I64, _PTR], _INT),
     "zigz_ntt_passes": ([_I64, _I64, ctypes.POINTER(_I64), ctypes.POINTER(_I64)], _INT),
+    "zigz_witness_rows": ([ctypes.POINTER(_PTR), ctypes.POINTER(_PTR), _I64, _I64, ctypes.c_uint64, ctypes.c_uint64,
+                           _PTR, _PTR, _PTR, _PTR], _INT),
     "zigz_cuda_error_string": ([_INT], ctypes.c_char_p),
 }
 # The launcher of every generated unit (csrc/dag_round.cuh).
