@@ -2,7 +2,9 @@
 
 A cell names a configuration (`configs/<config>.json` beside this package,
 via the `file` of its BENCHMARK.json entry) and a traffic mix
-(`traffic/<mix>.json`). A per-layer metric is `metrics/<metric>.py`, a
+(`traffic/<mix>.json`). A configuration's plain reference is the module
+`reference/v<protocol_version>.py` of its protocol, which decides `correct`
+for its proofs (`REFERENCE_API`). A per-layer metric is `metrics/<metric>.py`, a
 kernel group's work count `work/<group>.py`. Adding any of them is adding a
 file and an entry; nothing here names one. A quantity split between cells
 that report different end-to-end metrics keeps its name up to the first dot
@@ -16,12 +18,21 @@ import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import List, Optional
 
 import numpy as np
 
 BENCH_DIR = Path(__file__).resolve().parent.parent  # proving_bench/
 REPO = BENCH_DIR.parent
+
+# What a reference module gives: `NAMES`, the counts it compares, and
+# `LIMITS`, each name's limit; `expect(program, input_tape, max_steps, config,
+# device)`, what a proof must be; `compare(data, expected, program, config,
+# device)`, the counts for one proof's bytes, unreadable bytes included; and
+# `control(program, input_tape, max_steps, config, device)`, the proof with
+# the module's own shortcut, which `compare` has to fail.
+REFERENCE_API = ("NAMES", "LIMITS", "expect", "compare", "control")
 
 
 @dataclass
@@ -33,6 +44,7 @@ class Cell:
     end_to_end: List[dict]  # the metrics this cell reports with --trace 0
     per_layer: List[dict]  # ... with --trace 1
     guest: bytes
+    reference: ModuleType  # reference/v<protocol_version>.py, checked against REFERENCE_API
 
 
 def _reports(metric: dict, cell: str) -> bool:
@@ -48,12 +60,13 @@ def load(workload: str, bench_file: Optional[Path] = None) -> Cell:
         raise KeyError(f"no workload {workload!r} in {bench_file}")
     conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
     config = json.loads((root / conf["file"]).read_text())
+    ref = reference(config["protocol_version"])  # a run never reaches set-up with a reference it cannot load
     mix = json.loads((BENCH_DIR / "traffic" / f"{entry['traffic']}.json").read_text())
     e2e = [m for m in bench["end_to_end"] if _reports(m, workload)]
     moved = {m["name"] for m in e2e}
     layer = [m for m in bench["per_layer"] if m["moves"] in moved and _reports(m, workload)]
     guest = (BENCH_DIR / "guests" / mix["guest"]).read_bytes()
-    return Cell(workload, entry["chips"], config, mix, e2e, layer, guest)
+    return Cell(workload, entry["chips"], config, mix, e2e, layer, guest, ref)
 
 
 def _module(kind: str, name: str):
@@ -61,6 +74,24 @@ def _module(kind: str, name: str):
     spec = importlib.util.spec_from_file_location(f"proving_bench_{kind}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def reference(version: int) -> ModuleType:
+    """The plain reference of protocol `version`, the module of
+    reference/v<version>.py, checked against `REFERENCE_API`. It is imported
+    as `reference.v<version>`, a module of the package beside `benchlib`, so
+    that it can import its siblings."""
+    name = f"v{version}"
+    path = BENCH_DIR / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no reference module {name!r}: {path} is not there")
+    mod = importlib.import_module(f"reference.{name}")
+    if Path(mod.__file__).resolve() != path:
+        raise ImportError(f"reference.{name} was found at {mod.__file__}, not at {path}")
+    missing = [k for k in REFERENCE_API if not hasattr(mod, k)]
+    if missing or set(mod.LIMITS) != set(mod.NAMES):
+        raise ValueError(f"reference {name!r} has to give {REFERENCE_API}, a limit for each name; lacks {missing}")
     return mod
 
 

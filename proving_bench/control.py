@@ -4,10 +4,11 @@
     python3 proving_bench/control.py --workload v1-fib-2e22 --seeds 11 12 13
 
 For each seed: one prove of the seed's first window input by one warmed-up
-prover, then the comparison of its proof with the reference (the sound
-reading) and of the control in the program's place (the reference with the
-reduction after each fold of an evaluation left out). Prints one JSON line a
-seed with both readings. The benchmark's runs never run this.
+prover, then the comparison of its proof with the reference of the cell's
+protocol (the sound reading) and of that reference's control in the
+program's place (`control` of `reference/v<protocol_version>.py`: the proof
+with the reference's own shortcut). Prints one JSON line a seed with both
+readings. The benchmark's runs never run this.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         run = window.run_cell(c, seed, 0.0, False, "cuda")  # warm-up, then one prove
         inputs = {p.i: p.n for p in run.proves}
-        common = (run.kept, inputs, c.guest, 1 << c.mix["log2_trace"], c.config["modulus"], "cuda")
+        common = (c.reference, run.kept, inputs, c.guest, 1 << c.mix["log2_trace"], c.config, "cuda")
         sound, _ = judge.judge(*common)
         control, _ = judge.judge(*common, control=True)
         print(json.dumps({"workload": c.name, "seed": seed, "n": list(inputs.values()),

@@ -5,15 +5,17 @@
 
 Builds one prover, warms it up at the cell's size, proves the seed's inputs
 back to back for `--seconds`, compares a seeded sample of the proofs (and
-the longest) with the plain reference in `reference/`, and prints one JSON
+the longest) with the plain reference of the cell's protocol
+(`reference/v<protocol_version>.py`, `benchlib/judge.py`), and prints one JSON
 object as the last line of standard output: `correct`, `attempted`,
 `failed`, `metrics` (the cell's end-to-end metrics, or with `--trace 1` its
 per-layer metrics from a profiled window), `device`, with `--trace 1` a
-`breakdown`, and last `compared`, each number compared beside its limit
-(also the last lines of standard error). Earlier lines carry the card's
-name, power limit and max SM clock, a fixed host workload's seconds, the
-process's CPU seconds a second of window, the program's launch counters
-and the window's peak device memory. The host's thread pools are held to one thread.
+`breakdown`, and last `compared`, each number that reference compares
+beside its limit (also the last lines of standard error). Earlier lines
+carry the card's name, power limit and max SM clock, a fixed host
+workload's seconds, the process's CPU seconds a second of window, the
+program's launch counters and the window's peak device memory. The host's
+thread pools are held to one thread.
 
 It needs CUDA and as many cards as the cell asks for; without them it exits
 with 2 and prints no result. It exits with another code than 0, and prints
@@ -76,7 +78,8 @@ def drive(c, seed: int, seconds: float, traced: bool, device: str):
 
     inputs = {p.i: p.n for p in run.proves}
     t0 = time.perf_counter()
-    numbers, bad = judge.judge(run.kept, inputs, c.guest, 1 << c.mix["log2_trace"], c.config["modulus"], device)
+    numbers, bad = judge.judge(c.reference, run.kept, inputs, c.guest, 1 << c.mix["log2_trace"], c.config,
+                                device)
     early = [{"card": run.card, "host_anchor_s": anchor, "cpu_per_s": run.cpu_per_s},
              {"counters": run.counters, "memory": run.memory, "proves": len(run.proves), "warmup_s": run.warmup_s,
               "reference_s": time.perf_counter() - t0, "checked": sorted(run.kept),
@@ -86,7 +89,7 @@ def drive(c, seed: int, seconds: float, traced: bool, device: str):
            "kind": torch.cuda.get_device_name(0) if is_cuda else "cpu",
            "count": c.chips,
            "memory_peak_bytes": run.memory.get("max_memory_reserved_B", 0)}
-    result = {"correct": judge.verdict(numbers) and failed == 0, "attempted": len(run.proves),
+    result = {"correct": judge.verdict(numbers, c.reference) and failed == 0, "attempted": len(run.proves),
               "failed": failed, "metrics": metrics, "device": dev}
     if traced and run.trace is not None:
         from benchlib import trace
@@ -94,7 +97,7 @@ def drive(c, seed: int, seconds: float, traced: bool, device: str):
         dev["busy_s"], dev["window_s"] = run.trace.busy_s, run.trace.window_s
         result["breakdown"] = {"device_ops": [list(x) for x in trace.top_ops(run.trace)],
                                "idle_gaps": [list(x) for x in run.trace.gaps]}
-    result["compared"] = {k: {"value": v, "limit": judge.LIMITS[k]} for k, v in numbers.items()}
+    result["compared"] = judge.compared(numbers, c.reference)
     return result, early, numbers
 
 
@@ -125,7 +128,7 @@ def main(argv=None) -> int:
     for line in early:
         print(json.dumps(line))
     print(json.dumps(result), flush=True)
-    print("\n".join(judge.lines(numbers)), file=sys.stderr, flush=True)
+    print("\n".join(judge.lines(numbers, c.reference)), file=sys.stderr, flush=True)
     return 0
 
 

@@ -8,7 +8,7 @@ import torch
 from pb_support import SEED, tiny_cell
 import run as bench_run
 from benchlib import judge, window
-from reference import proof as refproof
+from reference import v1 as refproof
 
 SECONDS = 0.5
 
@@ -23,7 +23,7 @@ def _one_thread():
 
 def _drive(workload="v1-fib-2e16"):
     result, early, numbers = bench_run.drive(tiny_cell(workload), SEED, SECONDS, False, "cpu")
-    assert result["attempted"] >= 1 and set(result["compared"]) <= set(judge.NAMES)
+    assert result["attempted"] >= 1 and set(result["compared"]) <= set(refproof.NAMES)
     return result, numbers
 
 
@@ -95,11 +95,11 @@ def test_the_control_is_not_correct(workload):
     c = tiny_cell(workload)
     run = window.run_cell(c, SEED, 0.0, False, "cpu")
     inputs = {p.i: p.n for p in run.proves}
-    args = (run.kept, inputs, c.guest, 1 << c.mix["log2_trace"], c.config["modulus"], "cpu")
+    args = (c.reference, run.kept, inputs, c.guest, 1 << c.mix["log2_trace"], c.config, "cpu")
     sound, bad = judge.judge(*args)
-    assert judge.verdict(sound) and not bad
+    assert judge.verdict(sound, c.reference) and not bad
     control, bad = judge.judge(*args, control=True)
-    assert not judge.verdict(control) and control["openings"] > 0 and bad == set(run.kept)
+    assert not judge.verdict(control, c.reference) and control["openings"] > 0 and bad == set(run.kept)
 
 
 def test_import_guard_compares_whole_top_level_names():

@@ -6,10 +6,11 @@ import re
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
-from pb_support import BENCH, REPO, cell
+from pb_support import BENCH, REPO, SEED, TINY, cell
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -95,6 +96,96 @@ def test_a_metric_added_as_a_file_and_an_entry(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     name, proves, value = out.stdout.split()[-3:]
     assert name == "opens_s" and int(proves) >= 1 and float(value) > 0
+
+
+# A protocol that the program proves and the benchmark has no reference of
+# yet, and a throwaway reference of it: the header against the reference's
+# own, and a count the test plants.
+TOY_VERSION = 2
+TOY_REFERENCE = '''from . import proof, rv64
+
+NAMES = ("header_bytes", "planted")
+LIMITS = {"header_bytes": 0, "planted": 3}
+
+
+def expect(program, input_tape, max_steps, config, device):
+    entry, segments = rv64.parse_elf(program)
+    ex = rv64.execute(entry, segments, input_tape, max_steps)
+    return proof.header(config["protocol_version"], config["modulus"], ex.steps, rv64.num_vars(ex.steps))
+
+
+def compare(data, expected, program, config, device):
+    head = data[:len(expected)]
+    return {"header_bytes": sum(a != b for a, b in zip(head, expected)) + len(expected) - len(head),
+            "planted": PLANTED}
+
+
+def control(program, input_tape, max_steps, config, device):
+    return bytes(len(expect(program, input_tape, max_steps, config, device)))
+'''
+
+
+def _copy_with_configuration(tmp_path):
+    """A copy of the benchmark as it stands before protocol `TOY_VERSION` has
+    a reference, with one configuration of that protocol and one cell of it
+    added: new files and new entries, no file edited."""
+    def ignore(folder, names):
+        return [n for n in names if n == "__pycache__"
+                or (Path(folder) == BENCH / "reference" and n == f"v{TOY_VERSION}.py")]
+
+    shutil.copytree(BENCH, tmp_path / "proving_bench", ignore=ignore)
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    config = json.loads((BENCH / "configs" / "zigz-v1-babybear.json").read_text())
+    config.update(name="toy-babybear", protocol_version=TOY_VERSION)
+    path = tmp_path / "proving_bench" / "configs" / "toy-babybear.json"
+    assert not path.exists()
+    path.write_text(json.dumps(config))
+    bench["configs"].append({"name": "toy-babybear", "source": "a throwaway configuration of the tests",
+                             "file": "proving_bench/configs/toy-babybear.json", "reduced": [], "why": "its reference"})
+    bench["workloads"].append({"name": "toy-fib", "config": "toy-babybear", "traffic": "fib-2e16", "chips": 1,
+                               "why": "a cell judged by its own reference"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+@pytest.mark.parametrize("planted", [0, 4])
+def test_a_configuration_added_as_files_and_entries(tmp_path, planted):
+    """A configuration of a protocol with its own reference module, in a
+    copy: a window of tiny CPU proves through `run.drive` is judged by that
+    module's names and limits, and a count over its limit makes the run not
+    correct."""
+    _copy_with_configuration(tmp_path)
+    module = tmp_path / "proving_bench" / "reference" / f"v{TOY_VERSION}.py"
+    assert not module.exists()
+    module.write_text(TOY_REFERENCE + f"\n\nPLANTED = {planted}\n")
+    code = ("import json, sys; sys.path[:0] = ['proving_bench', sys.argv[1]]; import torch; torch.set_num_threads(1); "
+            "import run; from benchlib import cell; c = cell.load('toy-fib'); "
+            "c.mix = dict(c.mix, **json.loads(sys.argv[2])); "
+            "result, _, _ = run.drive(c, int(sys.argv[3]), 0.3, False, 'cpu'); print(json.dumps(result))")
+    out = subprocess.run([sys.executable, "-c", code, str(REPO), json.dumps(TINY), str(SEED)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    compared = result["compared"]
+    assert list(result)[-1] == "compared" and result["attempted"] >= 1
+    assert {k: c["limit"] for k, c in compared.items()} == {"header_bytes": 0, "planted": 3}
+    assert compared["header_bytes"]["value"] == 0
+    if planted:  # every kept proof reads 4 against the limit 3
+        assert compared["planted"]["value"] >= 4 and not result["correct"] and result["failed"] >= 1
+    else:
+        assert compared["planted"]["value"] == 0 and result["correct"] and result["failed"] == 0
+
+
+def test_a_configuration_naming_a_missing_reference_fails_at_load(tmp_path):
+    """A configuration of a protocol with no reference module: the
+    benchmark's command refuses the cell at `cell.load`, before it builds a
+    prover or looks for a card, and prints no result."""
+    _copy_with_configuration(tmp_path)
+    out = subprocess.run([sys.executable, "proving_bench/run.py", "--workload", "toy-fib", "--seed", "5",
+                          "--seconds", "1", "--trace", "0"], cwd=tmp_path, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 1 and out.stdout == ""  # without a card a loaded cell exits with 2
+    assert f"FileNotFoundError: no reference module 'v{TOY_VERSION}'" in out.stderr
+    assert ", in load\n" in out.stderr
 
 
 def test_stated_padded_sizes(bench):

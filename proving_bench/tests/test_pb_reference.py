@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from pb_support import BENCH, cell
-from reference import forest, proof as refproof, rv64, sha3
+from reference import forest, rv64, sha3, v1 as refproof
 
 P = 2013265921
 FIB = (BENCH / "guests" / "fibonacci.elf").read_bytes()
@@ -70,7 +70,7 @@ def test_v1_proof_bytes_equal_the_programs(n):
 
     proof = zt.Prover(zt.BabyBear, seed=3, device="cpu").prove(FIB, 0x1000, None, 1 << 12, None, [n])
     data = BinarySerializer(zt.BabyBear).serialize(proof)
-    exp = refproof.expect(FIB, [n], 1 << 12, P, "cpu")
+    exp = refproof.expect(FIB, [n], 1 << 12, cell.load("v1-fib-2e16").config, "cpu")
     assert exp.proof == data
     parsed = refproof.parse(data)
     assert [o.root for o in parsed.openings] == exp.roots and parsed.outputs == exp.execution.outputs
@@ -88,7 +88,7 @@ def _imports(path):
 
 
 def test_reference_imports_nothing_of_the_program_or_jax():
-    files = sorted((BENCH / "reference").glob("*.py"))
+    files = sorted((BENCH / "reference").rglob("*.py"))
     assert files
     for path in files:
         for name in _imports(path):
