@@ -300,29 +300,31 @@ class Prover:
         with span("unified", outer=True) as unified_span:
             core = CoreV2Argument(F, witness, trace, self.protocol_version)
 
-            queries = extract_table_queries(trace)
-            validity = ValidityArgument(F, queries)
+            with span("arguments") as arguments_span:
+                queries = extract_table_queries(trace)
+                validity = ValidityArgument(F, queries)
 
-            rs1, rs2, rd = instruction_registers(trace)
-            rv1, rv2, _rd_after, _rd_before = operand_values(trace, rs1, rs2, rd)
-            wr, ov, wv = write_access_values(trace)
-            # SYSTEM steps read (a7, a0) so the syscall dispatch state is a
-            # proven column (consumed by the bytecode argument).
-            rs1, rs2, rv1, rv2 = system_read_override(trace, rs1, rs2, rv1, rv2)
-            access = extract_access_columns(rs1, rs2, wr, rv1, rv2, ov, wv)
-            reg = RegcheckArgument(
-                F, access, num_vars, initial_regs, final_state["final_regs"],
-            )
+                rs1, rs2, rd = instruction_registers(trace)
+                rv1, rv2, _rd_after, _rd_before = operand_values(trace, rs1, rs2, rd)
+                wr, ov, wv = write_access_values(trace)
+                # SYSTEM steps read (a7, a0) so the syscall dispatch state is a
+                # proven column (consumed by the bytecode argument).
+                rs1, rs2, rv1, rv2 = system_read_override(trace, rs1, rs2, rv1, rv2)
+                access = extract_access_columns(rs1, rs2, wr, rv1, rv2, ov, wv)
+                reg = RegcheckArgument(
+                    F, access, num_vars, initial_regs, final_state["final_regs"],
+                )
 
-            init_mem = initial_memory_map(program, entry_pc, segments)
-            mc_access = extract_byte_accesses(trace, init_mem)
-            mem = MemcheckArgument(F, mc_access, init_mem)
+                init_mem = initial_memory_map(program, entry_pc, segments)
+                mc_access = extract_byte_accesses(trace, init_mem)
+                mem = MemcheckArgument(F, mc_access, init_mem)
 
-            bc = BytecodeArgument(
-                F, trace, program, entry_pc, segments, num_vars, reg, core,
-                validity, mem, outputs=final_state["output_tape"],
-                final_pc=final_state["final_pc"],
-            )
+                bc = BytecodeArgument(
+                    F, trace, program, entry_pc, segments, num_vars, reg, core,
+                    validity, mem, outputs=final_state["output_tape"],
+                    final_pc=final_state["final_pc"],
+                )
+            self.last_timings["arguments_s"] = arguments_span.seconds
 
             unified = prove_unified(
                 F, transcript, [core, validity, reg, mem, bc],

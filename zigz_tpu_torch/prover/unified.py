@@ -59,7 +59,9 @@ a card their generated round-sum kernels start building there, and
 nvcc).  Inside ``zerochecks_s``, ``dag_build_s`` is the time the
 zerochecks waited on nvcc for those kernels (0 once they are built) and
 ``zerocheck_host_s`` their host tracing and constant folding
-(ops/zerocheck_dev_ext.py ``DEVICE_PROVES``).
+(ops/zerocheck_dev_ext.py ``DEVICE_PROVES``).  ``data_build``, ``advice_build``
+and ``zerochecks`` hold one leaf span per argument, named by its ``ns``
+(keys ``<phase>_<ns>_s``).
 """
 
 from __future__ import annotations
@@ -137,7 +139,10 @@ def _commit(F, key: str, columns, hash_mode, device, timings, dev_columns=None, 
         timings[f"{key}_commit_path"] = state.commit_path
         if group is not None:
             timings[f"{key}_commit_sharded"] = state.commit_path == "mesh"
-        timings[f"{key}_commit_shape"] = (state.matrix.shape[0], state.n, state.n_e)  # total_rows, n, n_e
+        shape = (state.matrix.shape[0], state.n, state.n_e)  # total_rows, n, n_e
+        timings[f"{key}_commit_shape"] = shape
+        # the same as numbers, which a reader of the timings keeps and a tuple is not
+        timings.update(zip((f"{key}_commit_rows", f"{key}_commit_n", f"{key}_commit_n_e"), map(int, shape)))
         timings.update({f"{key}_{name}": seconds for name, seconds in state.commit_timings.items()})
     return state
 
@@ -152,10 +157,18 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
     if group is not None and group.device != device:
         raise ValueError(f"group on {group.device}, prove on {device}")
     data_full: Dict[str, np.ndarray] = {}
-    for a in args:
-        a.locmap = getattr(a, "locmap", {})
-        a._unified_device = device
-        _namespace(a, a.data_phase(transcript), "data", data_full)
+    with span("data_build", outer=True) as data_span:
+        data_s = {}
+        for a in args:
+            a.locmap = getattr(a, "locmap", {})
+            a._unified_device = device
+            with span(a.ns) as sp:
+                cols = a.data_phase(transcript)
+            data_s[a.ns] = sp.seconds
+            _namespace(a, cols, "data", data_full)
+    if timings is not None:
+        timings["data_build_s"] = data_span.seconds
+        timings.update({f"data_build_{ns}_s": seconds for ns, seconds in data_s.items()})
 
     data_state = None
     if data_full:
@@ -165,9 +178,13 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
 
     advice_full: Dict[str, np.ndarray] = {}
     start_s: List[float] = []
+    advice_s = {}
     with span("advice_build", outer=True) as advice_span:
         for a in args:
-            _namespace(a, a.advice_phase(transcript), "advice", advice_full)
+            with span(a.ns) as sp:
+                cols = a.advice_phase(transcript)
+            advice_s[a.ns] = sp.seconds
+            _namespace(a, cols, "advice", advice_full)
             # The argument's zerochecks can be made now that its challenges are
             # drawn: on a card each one's round-sum kernels start building
             # (ops/dag_dev.py), beside the later advice phases and both commits.
@@ -178,6 +195,7 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
     if timings is not None:
         timings["advice_build_s"] = advice_span.seconds - sum(start_s)
         timings["zerocheck_start_s"] = sum(start_s)
+        timings.update({f"advice_build_{ns}_s": seconds for ns, seconds in advice_s.items()})
 
     # Device twins of the advice columns (ops/advice_dev.py): rebuilt on the
     # device from the resident data matrix + the host-resolved challenges, so
@@ -216,11 +234,15 @@ def prove_unified(F, transcript, args: List, hash_mode: str = "sha3",
     states = {"data": data_state, "advice": advice_state}
     for a in args:
         a._unified_states = states
-    with span("zerochecks") as sp:
+    zc_s = {}
+    with span("zerochecks", outer=True) as sp:
         for a in args:
-            a.zerocheck_phase(transcript, sink)
+            with span(a.ns) as leaf:
+                a.zerocheck_phase(transcript, sink)
+            zc_s[a.ns] = leaf.seconds
     if timings is not None:
         timings["zerochecks_s"] = sp.seconds
+        timings.update({f"zerochecks_{ns}_s": seconds for ns, seconds in zc_s.items()})
         for key in ("dag_build_s", "zerocheck_host_s"):
             timings[key] = zerocheck_dev_ext.DEVICE_PROVES[key] - zc_before[key]
         if group is not None:
